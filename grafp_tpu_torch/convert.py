@@ -62,10 +62,12 @@ def _port_entry(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                         model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The port ``model``'s state_dict holding the JAX weights (f32 CPU
-    tensors; ``load_state_dict`` casts them to each parameter's dtype, as
-    flax casts at use). Raises KeyError on a missing or extra key and
-    ValueError on a shape mismatch, against ``model.state_dict()``."""
+    """The port ``model``'s state_dict holding the JAX weights, as f32 CPU
+    tensors: the port keeps every parameter and statistic in f32 and casts
+    to the compute dtype at use, as flax does, so one tree serves the
+    serving and the training model. Raises KeyError on a missing or extra
+    key and ValueError on a shape mismatch, against
+    ``model.state_dict()``."""
     leaves = {**_flatten(params), **_flatten(batch_stats)}
     out: Dict[str, torch.Tensor] = {}
     for path, arr in leaves.items():

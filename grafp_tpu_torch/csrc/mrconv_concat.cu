@@ -1,14 +1,15 @@
-// Fused MRConv frontend for Hopper: x (B, N, C) -> [x || rel(x) - x].
+// Fused MRConv frontend for Hopper: x (B, N, C) -> [x || rel(x) - x], and
+// its gradient.
 //
-// Replaces the TPU kernel grafp_tpu/ops/pallas_knn.py:_concat_forward /
-// _concat_kernel (forward of mrconv_concat_pallas). rel(x)_i is the max
-// over row i's k most similar nodes of their features, under the Pallas
-// kernel's selection rule:
+// Forward. Replaces the TPU kernel grafp_tpu/ops/pallas_knn.py:
+// _concat_forward / _concat_kernel (forward of mrconv_concat_pallas).
+// rel(x)_i is the max over row i's k most similar nodes of their features,
+// under the Pallas kernel's selection rule:
 //   * rows and keys are L2-normalised in f32 (eps 1e-12) and rounded to the
 //     matmul dtype (bf16 for bf16 x) before a dot accumulated in f32;
 //   * k threshold rounds on immutable scores: round r takes the whole tie
-//     group at the r-th largest distinct score level and extracts the MEAN
-//     of its rows; round r is active only while the counts of rounds
+//     group at the r-th largest distinct score level and extracts the
+//     MEAN of its rows; round r is active only while the counts of rounds
 //     0..r-1 sum to less than k;
 //   * rel - x is rounded in x's dtype.
 //
@@ -44,6 +45,39 @@
 //   3. mean per round, running max over active rounds, and the output row.
 // Tie groups may be as large as N (silent segments give identical rows),
 // so no per-row state holds indices: only levels, counts and sums.
+//
+// Backward. Replaces the TPU kernel grafp_tpu/ops/pallas_knn.py:
+// _concat_backward / _concat_bwd_kernel / _one_backward. For the cotangent
+// g = [g_x || g_rel] (B, N, 2C):
+//   dx_j = g_x,j - g_rel,j + sum_i sum_r [s(i, j) in round r of row i] G_r(i)
+//   G_r(i, ch) = g_rel(i, ch) / cnt_r(i) where round r wins (i, ch): it is
+//   active and the first round whose mean equals the running max; else 0;
+//   rounded to the matmul dtype. The sum accumulates in f32; dx is cast to
+//   x's dtype.
+// Bound on this card (B=512 in training): bytes = x and g in, dx out =
+// 4*B*N*C*sizeof(x); operations = the score product once, 2*B*N^2*C at the
+// dtype's peak, plus one compare per score and round (k*B*N^2 on the f32
+// units). At stage 1 it is bound by operations, at stages 2-4 (bf16) by
+// bytes.
+// Design. The Pallas kernel sums dx across query tiles in an output block
+// that the sequential grid revisits; CUDA blocks run in no order, so the
+// scatter becomes a gather in a second pass, and no float atomics are used:
+// dx is bit-equal from run to run. Three launches:
+//   normalize_rows_kernel, as in the forward;
+//   pass A, mrconv_concat_kernel<backward>: steps 1-2 of the forward per
+//      (item, row tile), then per (row, channel) the winning round and
+//      G_r, written to scratch G (B, N, k, C) in the matmul dtype, and the
+//      levels of the active non-empty rounds to scratch (B, N, k) f32 (NaN
+//      for the others, so they never match);
+//   pass B, mrconv_concat_bwd_scatter_kernel: one block per (item, tile of
+//      TR keys j); for every row tile it recomputes s(j, i) with the same
+//      score_tile. A score is one fmaf chain over the channels in order and
+//      fmaf is symmetric in its factors, so s(j, i) == s(i, j) bit for bit
+//      and the compare against pass A's levels is exact. Each hit adds the
+//      row's G_r into per-key f32 sums in shared memory, in row order (one
+//      warp per key); then the direct term and the cast.
+// A simple kernel: the scores are computed three times on the f32 CUDA
+// cores, not on the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -183,6 +217,15 @@ __device__ __forceinline__ void score_tile(const T* __restrict__ xnb, int n, int
   __syncthreads();
 }
 
+// Mean of round r's tie group at channel ch from the per-(row, round)
+// sums; an empty round gives 0 (the reference divides a zero sum by a count
+// floored at 1).
+__device__ __forceinline__ float round_mean(const float* acc_i, const int* cnt_i, int r,
+                                            int c, int ch) {
+  const int cr = cnt_i[r];
+  return cr > 0 ? acc_i[(size_t)r * c + ch] / (float)cr : 0.f;
+}
+
 // Row j of x -> x_j / max(||x_j||, 1e-12), computed in f32 and rounded to
 // T (the matmul dtype). One warp per row; the sum of squares is one fmaf
 // chain per lane and a fixed butterfly, so equal rows get equal results.
@@ -204,10 +247,15 @@ normalize_rows_kernel(const T* __restrict__ x, T* __restrict__ xn, long long row
   for (int ch = lane; ch < c; ch += 32) xn[row * c + ch] = from_f<T>(to_f(xr[ch]) / nrm);
 }
 
-template <typename T, int TR>
+// kBackward = false: the forward, writes out (B, N, 2C).
+// kBackward = true: pass A of the backward, reads g (B, N, 2C) and writes
+// grs (B, N, k, C) and levels (B, N, k).
+template <typename T, int TR, bool kBackward>
 __global__ void __launch_bounds__(kThreads)
 mrconv_concat_kernel(const T* __restrict__ x, const T* __restrict__ xn,
-                     T* __restrict__ out, int n, int c, int k) {
+                     T* __restrict__ out, const T* __restrict__ g,
+                     T* __restrict__ grs, float* __restrict__ levels,
+                     int n, int c, int k) {
   using L = Layout<TR>;
   extern __shared__ float smem[];
   float* rows_c = smem;                                // kChunk x (TR+1)
@@ -269,6 +317,17 @@ mrconv_concat_kernel(const T* __restrict__ x, const T* __restrict__ xn,
       }
     }
     nact[row] = active;
+    if constexpr (kBackward) {
+      const int i = i0 + row;
+      if (i < n) {
+        float* lo = levels + ((size_t)b * n + i) * k;
+        const float nan = __int_as_float(0x7fc00000);
+#pragma unroll
+        for (int r = 0; r < kMaxK; ++r) {
+          if (r < k) lo[r] = (r < active && ct[r] > 0) ? lv[r] : nan;
+        }
+      }
+    }
   }
   // (score_tile's first barrier publishes lev/cnt/nact and the zeroed sums)
 
@@ -301,24 +360,110 @@ mrconv_concat_kernel(const T* __restrict__ x, const T* __restrict__ xn,
   }
   __syncthreads();
 
-  // 3. mean per round, running max over the active rounds, output row
+  // 3. mean per round, running max over the active rounds, then the
+  //    output row (forward) or the winners' cotangents (backward)
   for (int rr = warp; rr < TR; rr += kWarps) {
     const int i = i0 + rr;
     if (i >= n) continue;
-    const T* xi = xb + (size_t)i * c;
-    T* oi = out + ((size_t)b * n + i) * 2 * c;
     const int na = nact[rr];
+    const float* acc_i = acc + (size_t)rr * k * c;
+    const int* cnt_i = cnt + rr * kMaxK;
     for (int ch = lane; ch < c; ch += 32) {
       float rel = -INFINITY;
-      for (int r = 0; r < na; ++r) {
-        const int cr = cnt[rr * kMaxK + r];
-        const float feat = cr > 0 ? acc[((size_t)rr * k + r) * c + ch] / (float)cr : 0.f;
-        rel = max_nan(rel, feat);
+      for (int r = 0; r < na; ++r) rel = max_nan(rel, round_mean(acc_i, cnt_i, r, c, ch));
+      if constexpr (!kBackward) {
+        const T xv = xb[(size_t)i * c + ch];
+        T* oi = out + ((size_t)b * n + i) * 2 * c;
+        oi[ch] = xv;
+        oi[c + ch] = from_f<T>(to_f(from_f<T>(rel)) - to_f(xv));
+      } else {
+        // the first active round whose mean equals the running max wins
+        // (a NaN max has no winner, as in the reference's == test)
+        const float gv = to_f(g[((size_t)b * n + i) * 2 * c + c + ch]);
+        T* gi = grs + ((size_t)b * n + i) * k * c;
+        bool claimed = false;
+        for (int r = 0; r < k; ++r) {
+          float gr = 0.f;
+          if (r < na && !claimed && round_mean(acc_i, cnt_i, r, c, ch) == rel) {
+            claimed = true;
+            gr = gv / (float)(cnt_i[r] > 0 ? cnt_i[r] : 1);
+          }
+          gi[(size_t)r * c + ch] = from_f<T>(gr);
+        }
       }
-      const T xv = xi[ch];
-      oi[ch] = xv;
-      oi[c + ch] = from_f<T>(to_f(from_f<T>(rel)) - to_f(xv));
     }
+  }
+}
+
+// pass B of the backward: dx for one (item, tile of TR keys j)
+template <typename T, int TR>
+__global__ void __launch_bounds__(kThreads)
+mrconv_concat_bwd_scatter_kernel(const T* __restrict__ xn, const T* __restrict__ g,
+                                 const T* __restrict__ grs,
+                                 const float* __restrict__ levels,
+                                 T* __restrict__ dx, int n, int c, int k) {
+  using L = Layout<TR>;
+  extern __shared__ float smem[];
+  float* rows_c = smem;                                // kChunk x (TR+1)
+  float* keys_c = rows_c + kChunk * (TR + 1);          // kChunk x (KT+1)
+  float* sc = keys_c + kChunk * (L::KT + 1);           // TR x (KT+1)
+  float* acc = sc + TR * (L::KT + 1);                  // TR x c
+  float* lvl = acc + (size_t)TR * c;                   // KT x kMaxK
+
+  const int tiles = (n + TR - 1) / TR;
+  const int b = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x % tiles) * TR;
+  const T* xnb = xn + (size_t)b * n * c;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  constexpr int kWarps = kThreads / 32;
+  const float nan = __int_as_float(0x7fc00000);
+
+  for (int e = tid; e < TR * c; e += kThreads) acc[e] = 0.f;
+
+  for (int i0 = 0; i0 < n; i0 += L::KT) {
+    // sc[jj][ii] = s(j0 + jj, i0 + ii), NaN for i >= n
+    score_tile<T, TR>(xnb, n, c, j0, i0, rows_c, keys_c, sc);
+    for (int e = tid; e < L::KT * kMaxK; e += kThreads) {
+      const int ii = e / kMaxK, r = e % kMaxK, i = i0 + ii;
+      lvl[e] = (r < k && i < n) ? levels[((size_t)b * n + i) * k + r] : nan;
+    }
+    __syncthreads();
+    for (int jj = warp; jj < TR; jj += kWarps) {
+      if (j0 + jj >= n) continue;
+      float* dst = acc + (size_t)jj * c;
+      for (int kk0 = 0; kk0 < L::KT; kk0 += 32) {
+        const int kk = kk0 + lane;
+        int round = -1;
+        if (kk < L::KT) {
+          const float s = sc[jj * (L::KT + 1) + kk];
+#pragma unroll
+          for (int r = 0; r < kMaxK; ++r) {
+            if (s == lvl[kk * kMaxK + r]) round = r;
+          }
+        }
+        unsigned hits = __ballot_sync(kFull, round >= 0);
+        while (hits) {
+          const int src = __ffs(hits) - 1;
+          hits &= hits - 1;
+          const int r = __shfl_sync(kFull, round, src);
+          const T* gsrc = grs + (((size_t)b * n + i0 + kk0 + src) * k + r) * c;
+          for (int ch = lane; ch < c; ch += 32) dst[ch] += to_f(gsrc[ch]);
+        }
+      }
+    }
+    // (the next score_tile's first barrier orders these reads before the
+    // next tile's writes of sc and lvl)
+  }
+  __syncthreads();
+
+  // direct term g_x - g_rel, and dx in x's dtype
+  for (int jj = warp; jj < TR; jj += kWarps) {
+    const int j = j0 + jj;
+    if (j >= n) continue;
+    const T* gj = g + ((size_t)b * n + j) * 2 * c;
+    T* dj = dx + ((size_t)b * n + j) * c;
+    for (int ch = lane; ch < c; ch += 32)
+      dj[ch] = from_f<T>(acc[(size_t)jj * c + ch] + (to_f(gj[ch]) - to_f(gj[c + ch])));
   }
 }
 
@@ -328,38 +473,99 @@ int pick_rows(int c, int k) {
   return tr;
 }
 
-template <typename T, int TR>
-cudaError_t launch(const T* x, T* xn, T* out, int b, int n, int c, int k,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<TR>(c, k);
-  if (smem > kSmemMax) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(mrconv_concat_kernel<T, TR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)b * ((n + TR - 1) / TR);
-  const long long rows = (long long)b * n;
-  const long long norm_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks > 0x7fffffffLL || norm_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  normalize_rows_kernel<T><<<(unsigned)norm_blocks, kThreads, 0, stream>>>(x, xn, rows, c);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mrconv_concat_kernel<T, TR><<<(unsigned)blocks, kThreads, smem, stream>>>(x, xn, out, n, c, k);
-  return cudaGetLastError();
+// pass B: score staging and tile as in smem_bytes, per-key f32 sums of dx,
+// and the staged levels of one row tile
+template <int TR>
+size_t scatter_smem_bytes(int c) {
+  using L = Layout<TR>;
+  size_t floats = (size_t)kChunk * (TR + 1) + (size_t)kChunk * (L::KT + 1)
+                  + (size_t)TR * (L::KT + 1) + (size_t)TR * c
+                  + (size_t)L::KT * kMaxK;
+  return 4 * floats;
 }
 
 template <typename T>
-cudaError_t dispatch(const void* xv, void* xnv, void* outv, int b, int n, int c, int k,
-                     cudaStream_t s) {
-  const T* x = static_cast<const T*>(xv);
-  T* xn = static_cast<T*>(xnv);
-  T* out = static_cast<T*>(outv);
-  switch (pick_rows(c, k)) {
-    case 64: return launch<T, 64>(x, xn, out, b, n, c, k, s);
-    case 32: return launch<T, 32>(x, xn, out, b, n, c, k, s);
-    case 16: return launch<T, 16>(x, xn, out, b, n, c, k, s);
-    default: return launch<T, 8>(x, xn, out, b, n, c, k, s);
+struct Args {
+  const T* x;      // (B, N, C)
+  T* xn;           // (B, N, C) scratch: normalised rows
+  T* out;          // forward: (B, N, 2C)
+  const T* g;      // backward: cotangent (B, N, 2C)
+  T* grs;          // backward scratch: G (B, N, k, C)
+  float* levels;   // backward scratch: (B, N, k)
+  T* dx;           // backward: (B, N, C)
+  int b, n, c, k;
+};
+
+template <typename T>
+cudaError_t normalize(const Args<T>& a, cudaStream_t stream) {
+  const long long rows = (long long)a.b * a.n;
+  const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  normalize_rows_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(a.x, a.xn, rows, a.c);
+  return cudaGetLastError();
+}
+
+template <typename T, int TR, bool kBackward>
+cudaError_t launch_rows(const Args<T>& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes<TR>(a.c, a.k);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  auto kernel = mrconv_concat_kernel<T, TR, kBackward>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)a.b * ((a.n + TR - 1) / TR);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(a.x, a.xn, a.out, a.g, a.grs,
+                                                      a.levels, a.n, a.c, a.k);
+  return cudaGetLastError();
+}
+
+template <typename T, int TR>
+cudaError_t launch_scatter(const Args<T>& a, cudaStream_t stream) {
+  const size_t smem = scatter_smem_bytes<TR>(a.c);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  auto kernel = mrconv_concat_bwd_scatter_kernel<T, TR>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)a.b * ((a.n + TR - 1) / TR);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(a.xn, a.g, a.grs, a.levels, a.dx,
+                                                      a.n, a.c, a.k);
+  return cudaGetLastError();
+}
+
+// forward: normalise, then the row kernel; backward: normalise, pass A
+// (the row kernel in its backward form), pass B
+template <typename T, bool kBackward>
+cudaError_t dispatch(const Args<T>& a, cudaStream_t s) {
+  cudaError_t err = normalize(a, s);
+  if (err != cudaSuccess) return err;
+  switch (pick_rows(a.c, a.k)) {
+    case 64: err = launch_rows<T, 64, kBackward>(a, s); break;
+    case 32: err = launch_rows<T, 32, kBackward>(a, s); break;
+    case 16: err = launch_rows<T, 16, kBackward>(a, s); break;
+    default: err = launch_rows<T, 8, kBackward>(a, s); break;
   }
+  if (!kBackward || err != cudaSuccess) return err;
+  switch (pick_rows(a.c, 1)) {
+    case 64: return launch_scatter<T, 64>(a, s);
+    case 32: return launch_scatter<T, 32>(a, s);
+    case 16: return launch_scatter<T, 16>(a, s);
+    default: return launch_scatter<T, 8>(a, s);
+  }
+}
+
+template <typename T>
+Args<T> make_args(const void* x, void* xn, void* out, const void* g, void* grs,
+                  void* levels, void* dx, int b, int n, int c, int k) {
+  return Args<T>{static_cast<const T*>(x), static_cast<T*>(xn), static_cast<T*>(out),
+                 static_cast<const T*>(g), static_cast<T*>(grs),
+                 static_cast<float*>(levels), static_cast<T*>(dx), b, n, c, k};
+}
+
+bool bad_shape(int b, int n, int c, int k) {
+  return b < 1 || n < 1 || c < 1 || k < 1 || k > kMaxK || n < k;
 }
 
 }  // namespace
@@ -372,10 +578,32 @@ extern "C" {
 // on success); the caller checks N >= k and 1 <= k <= kMaxK.
 int mrconv_concat_forward(const void* x, void* scratch, void* out, int b, int n, int c,
                           int k, int dtype, void* stream) {
-  if (b < 1 || n < 1 || c < 1 || k < 1 || k > kMaxK || n < k) return cudaErrorInvalidValue;
+  if (bad_shape(b, n, c, k)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(x, scratch, out, b, n, c, k, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(x, scratch, out, b, n, c, k, s);
+  if (dtype == 0)
+    return dispatch<float, false>(
+        make_args<float>(x, scratch, out, nullptr, nullptr, nullptr, nullptr, b, n, c, k), s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16, false>(
+        make_args<__nv_bfloat16>(x, scratch, out, nullptr, nullptr, nullptr, nullptr,
+                                 b, n, c, k), s);
+  return cudaErrorInvalidValue;
+}
+
+// x (B, N, C), g (B, N, 2C) in, dx (B, N, C) out, one dtype; scratch the
+// caller allocates: xn (B, N, C) and grs (B, N, k, C) of that dtype,
+// levels (B, N, k) float32. Returns the CUDA error of the launches.
+int mrconv_concat_backward(const void* x, const void* g, void* xn, void* grs,
+                           void* levels, void* dx, int b, int n, int c, int k,
+                           int dtype, void* stream) {
+  if (bad_shape(b, n, c, k)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float, true>(
+        make_args<float>(x, xn, nullptr, g, grs, levels, dx, b, n, c, k), s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16, true>(
+        make_args<__nv_bfloat16>(x, xn, nullptr, g, grs, levels, dx, b, n, c, k), s);
   return cudaErrorInvalidValue;
 }
 

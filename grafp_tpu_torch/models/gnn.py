@@ -1,15 +1,18 @@
 """ViG-style dynamic-graph encoder with Max-Relative graph convolution
-(port of ``grafp_tpu.models.gnn``, eval-mode forward).
+(port of ``grafp_tpu.models.gnn``; eval and train modes).
 
 Node tensors are channels-last (B, N, C). Every Grapher block rebuilds
 the k-NN graph from its current features inside one CUDA kernel
-(``ops.mrconv_concat``), which emits [x || max_k(x_nbr) - x]; the grouped
+(``ops.mrconv_concat.MRConvConcat``: a forward kernel that emits [x ||
+max_k(x_nbr) - x] and a backward kernel for its gradient); the grouped
 MRConv conv absorbs the reference's channel interleave in its weights.
+In train mode every BatchNorm uses the batch's statistics.
 
 Reference quirk kept: the reference never increments its block counter,
 so every block runs dilation 1 and drop_path 0 (graph_encoder.py:139-151,
-``dilation_schedule='reference'``). Other graph convs and dilations > 1
-belong to a later slice of the port.
+``dilation_schedule='reference'``, ``drop_path_schedule='reference'``).
+Other graph convs, dilations > 1 and DropPath belong to a later slice of
+the port.
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ from grafp_tpu_torch.models.layers import (
     GroupedPointwiseConv,
     PointwiseConv,
     act_layer,
+    cast,
     uniform_,
 )
-from grafp_tpu_torch.ops.mrconv_concat import mrconv_concat
+from grafp_tpu_torch.ops.mrconv_concat import MRConvConcat
 
 SIZE_PRESETS = {
     # size: (blocks per stage, channels per stage)  graph_encoder.py:96-110
@@ -80,7 +84,7 @@ class Grapher(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
         x = self.fc1_bn(self.fc1(x))
-        x = self.gconv(mrconv_concat(x.contiguous(), self.k))
+        x = self.gconv(MRConvConcat.apply(x.contiguous(), self.k))
         x = self.fc2_bn(self.fc2(x))
         return x + shortcut
 
@@ -111,8 +115,9 @@ class Downsample(nn.Module):
     def __init__(self, in_features: int, features: int,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = nn.Conv1d(in_features, features, 3, stride=2, padding=1,
-                              dtype=dtype or torch.float32)
+        self.dtype = dtype
+        # f32 master weights, cast to the compute dtype at use
+        self.conv = nn.Conv1d(in_features, features, 3, stride=2, padding=1)
         self.bn = BatchNorm(features, dtype=dtype)
 
     def init_weights(self, g: torch.Generator) -> None:
@@ -121,7 +126,10 @@ class Downsample(nn.Module):
         uniform_(self.conv.bias, bound, g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x.to(self.conv.weight.dtype).transpose(1, 2))
+        conv = self.conv
+        y = F.conv1d(cast(x, self.dtype).transpose(1, 2),
+                     cast(conv.weight, self.dtype), cast(conv.bias, self.dtype),
+                     stride=conv.stride, padding=conv.padding)
         return self.bn(y.transpose(1, 2))
 
 

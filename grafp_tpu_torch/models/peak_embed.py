@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from grafp_tpu_torch.models.layers import normal_
+from grafp_tpu_torch.models.layers import cast, normal_
 
 
 class PeakEmbed(nn.Module):
@@ -24,9 +24,10 @@ class PeakEmbed(nn.Module):
         super().__init__()
         kh, kw = kernel
         self.n_filters = n_filters
+        self.dtype = dtype
+        # f32 master weights, cast to the compute dtype at use
         self.conv = nn.Conv2d(3, n_filters, (kh, kw), stride=(stride, 1),
-                              padding=(kh // 2, kw // 2),
-                              dtype=dtype or torch.float32)
+                              padding=(kh // 2, kw // 2))
 
     def init_weights(self, g: torch.Generator) -> None:
         # kaiming_normal over fan_out, zero bias
@@ -46,5 +47,8 @@ class PeakEmbed(nn.Module):
         f_coord = torch.linspace(0.0, 1.0, h, device=spec.device,
                                  dtype=s.dtype).view(1, h, 1).expand(b, h, w)
         x = torch.stack([t_coord, f_coord, s], dim=1)       # (B, 3, H, W)
-        y = F.relu(self.conv(x.to(self.conv.weight.dtype)))  # (B, C, H/2, W)
+        conv = self.conv
+        y = F.relu(F.conv2d(cast(x, self.dtype), cast(conv.weight, self.dtype),
+                            cast(conv.bias, self.dtype), stride=conv.stride,
+                            padding=conv.padding))           # (B, C, H/2, W)
         return y.permute(0, 2, 3, 1).reshape(b, -1, self.n_filters)

