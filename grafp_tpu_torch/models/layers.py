@@ -211,6 +211,14 @@ class BatchNorm(nn.Module):
         y = (x32 - mean) * mul + self.bias
         return y.to(self.dtype) if self.dtype else y
 
+    def affine(self):
+        """The eval-mode map as an affine, BN(x) == x * s + t, f32, from the
+        live parameters and running statistics on every call
+        (``grafp_tpu.models.layers._BNParamsCore``, operation for
+        operation)."""
+        s = self.weight * torch.rsqrt(self.running_var + BN_EPS)
+        return s, self.bias - self.running_mean * s
+
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every submodule that defines ``init_weights(g)``, in

@@ -68,6 +68,14 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
     if quant != "none":
         raise NotImplementedError(
             f"serve_quant {quant!r}: int8 serving is a later slice of the port")
+    strategy = cfg["knn_strategy"]
+    if strategy not in ("auto", "pallas"):
+        # the JAX Grapher runs the pair-layout MRConv for these
+        # (grafp_tpu/models/gnn.py:262-287); the port's Grapher always
+        # runs the kernel
+        raise NotImplementedError(
+            f"knn_strategy {strategy!r}: the pair-layout Grapher is a later "
+            "slice of the port ('auto' and 'pallas' run the kernel)")
     name = cfg["compute_dtype"] or "float32"
     if name not in _DTYPES:
         raise ValueError(f"compute_dtype must be float32|bfloat16, got {name!r}")

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` inside the
-package, at first use, and loaded with ctypes. The hash covers the source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing here runs at import time.
+package, at first use, and loaded with ctypes. The hash covers the source,
+the shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -58,7 +59,7 @@ def _check_nk(n: int, k: int) -> None:
     if n < k:
         # the threshold rounds assume a row never runs out of columns with
         # budget left (pallas_knn.py:_pallas_forward)
-        raise ValueError(f"mrconv_concat requires N >= k (got N={n}, k={k})")
+        raise ValueError(f"the k-NN selection requires N >= k (got N={n}, k={k})")
 
 
 def _select_rounds(scores: torch.Tensor, k: int):
@@ -80,10 +81,13 @@ def _select_rounds(scores: torch.Tensor, k: int):
     return masks, cnts
 
 
-def _replay(x: torch.Tensor, k: int):
+def _replay(x: torch.Tensor, k: int, xn: Optional[torch.Tensor] = None):
     """The forward's arithmetic on (B, N, C) x: the k rounds' 0/1 masks
     (B, N, N) and counts, the per-round means (feats), which rows each
     round is active for, and rel, the running max over active rounds.
+
+    The keys ``xn`` default to this kernel's: rows normalised in f32 and
+    cast to the matmul dtype. ``ops/max_neighbors.py`` passes its own.
 
     Materialises the (B, N, N) f32 scores and k masks. Matmul-dtype values
     are carried in f32 for the products: bf16 values and their pairwise
@@ -92,7 +96,9 @@ def _replay(x: torch.Tensor, k: int):
     b, n, c = x.shape
     _check_nk(n, k)
     mm = _mm_dtype(x.dtype)
-    xn = _norm_rows_f32(x).to(mm).to(torch.float32)
+    if xn is None:
+        xn = _norm_rows_f32(x).to(mm)
+    xn = xn.to(mm).to(torch.float32)
     xmm = x.to(mm).to(torch.float32)
     scores = torch.matmul(xn, xn.transpose(-1, -2))        # (B, N, N) f32
     masks, cnts = _select_rounds(scores, k)
@@ -109,6 +115,27 @@ def _replay(x: torch.Tensor, k: int):
     return masks, cnts, feats, actives, rel
 
 
+def _scatter(x: torch.Tensor, g_rel: torch.Tensor, k: int,
+             xn: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The backward's scatter, in f32: replays the selection on the keys
+    ``xn`` (as ``_replay``), picks each (row, channel)'s winning round (the
+    first active round whose mean equals the running max), rounds
+    G_r = where(win, g_rel, 0) / cnt_r to the matmul dtype, and sums
+    mask_r^T G_r over all rounds through one transposed product
+    (``pallas_knn.py:_one_backward``)."""
+    masks, cnts, feats, actives, rel = _replay(x, k, xn)
+    g_rel = g_rel.to(torch.float32)
+    mm = _mm_dtype(x.dtype)
+    claimed = torch.zeros_like(rel, dtype=torch.bool)
+    grs = []
+    for feat, active, cnt in zip(feats, actives, cnts):
+        win = active & (feat == rel) & ~claimed
+        claimed = claimed | win
+        grs.append((torch.where(win, g_rel, 0.0) / cnt).to(mm).to(torch.float32))
+    mstack = torch.cat(masks, dim=1)                       # (B, k*N, N)
+    return torch.matmul(mstack.transpose(1, 2), torch.cat(grs, dim=1))
+
+
 def mrconv_concat_reference(x: torch.Tensor, k: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel: (B, N, C) -> (B, N, 2C)."""
     rel = _replay(x, k)[-1]
@@ -120,28 +147,15 @@ def mrconv_concat_backward_reference(x: torch.Tensor, g: torch.Tensor,
     """Plain PyTorch version of the backward kernel: x (B, N, C) and the
     cotangent g (B, N, 2C) of [x || rel - x] -> dx (B, N, C) in x's dtype.
 
-    Replays the selection, picks each (row, channel)'s winning round (the
-    first active round whose mean equals the running max), rounds
-    G_r = where(win, g_rel, 0) / cnt_r to the matmul dtype, and scatters
-    all rounds through one transposed product accumulated in f32
-    (``pallas_knn.py:_one_backward``, ``_concat_bwd_kernel``)."""
+    The scatter of ``_scatter`` plus the direct term g_x - g_rel, cast to
+    x's dtype (``pallas_knn.py:_concat_bwd_kernel``)."""
     b, n, c = x.shape
     if g.shape != (b, n, 2 * c):
         raise ValueError(f"mrconv_concat_backward: g {tuple(g.shape)} for x "
                          f"{tuple(x.shape)}")
-    masks, cnts, feats, actives, rel = _replay(x, k)
     g32 = g.to(torch.float32)
     g_x, g_rel = g32[..., :c], g32[..., c:]
-    mm = _mm_dtype(x.dtype)
-    claimed = torch.zeros_like(rel, dtype=torch.bool)
-    grs = []
-    for feat, active, cnt in zip(feats, actives, cnts):
-        win = active & (feat == rel) & ~claimed
-        claimed = claimed | win
-        grs.append((torch.where(win, g_rel, 0.0) / cnt).to(mm).to(torch.float32))
-    mstack = torch.cat(masks, dim=1)                       # (B, k*N, N)
-    dx = torch.matmul(mstack.transpose(1, 2), torch.cat(grs, dim=1))
-    return (dx + (g_x - g_rel)).to(x.dtype)
+    return (_scatter(x, g_rel, k) + (g_x - g_rel)).to(x.dtype)
 
 
 def _check_kernel_input(x: torch.Tensor, k: int, what: str) -> None:
@@ -157,10 +171,11 @@ def _check_kernel_input(x: torch.Tensor, k: int, what: str) -> None:
         raise ValueError(f"{what}: k={k} outside 1..{MAX_K}")
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+def _raise_on(error_fn, err: int, what: str) -> None:
+    """Raise when a library's launch returned a CUDA error; ``error_fn`` is
+    the library's ``*_error`` (code -> message)."""
     if err != 0:
-        msg = lib.mrconv_concat_error(err).decode()
-        raise RuntimeError(f"{what} kernel failed: {msg} ({err})")
+        raise RuntimeError(f"{what} kernel failed: {error_fn(err).decode()} ({err})")
 
 
 def mrconv_concat(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -186,7 +201,7 @@ def mrconv_concat(x: torch.Tensor, k: int) -> torch.Tensor:
         err = lib.mrconv_concat_forward(x.data_ptr(), scratch.data_ptr(),
                                         out.data_ptr(), b, n, c, k,
                                         _DTYPE_CODE[x.dtype], stream)
-    _raise_on(lib, err, "mrconv_concat")
+    _raise_on(lib.mrconv_concat_error, err, "mrconv_concat")
     mrconv_concat.launches += 1
     return out
 
@@ -228,7 +243,7 @@ def mrconv_concat_backward(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Te
             x.data_ptr(), g.data_ptr(), xn.data_ptr(), grs.data_ptr(),
             levels.data_ptr(), dx.data_ptr(), b, n, c, k,
             _DTYPE_CODE[x.dtype], stream)
-    _raise_on(lib, err, "mrconv_concat_backward")
+    _raise_on(lib.mrconv_concat_error, err, "mrconv_concat_backward")
     mrconv_concat_backward.launches += 1
     return dx
 

@@ -3,17 +3,19 @@
 NVIDIA card.
 
     python3 scripts/torch_port_profile.py [--batch 128] [--dtype bfloat16]
-                                          [--train] [--trace PATH.json]
+                                          [--train | --fused] [--trace PATH.json]
 
 Serving (default): the size-t model with seeded random weights,
-FingerprintPipeline.fingerprint_waves at ``--batch`` waves. ``--train``:
+FingerprintPipeline.fingerprint_waves at ``--batch`` waves; ``--fused``
+serves the same weights through GraphEncoder(fuse_serving='on'). ``--train``:
 one train step of the size-t model at bsz_train ``--batch`` (default
 256, so one stacked 2B forward), with chip_smoke.py's seeded synthetic
 noise and IR banks. Warms up, then runs a few iterations under
 torch.profiler. Prints the card (nvidia-smi name and power limit), the
 wall time per iteration (host clock around synchronised work), the device
 time summed over kernels, the device idle share, the time of the port's
-MRConv kernels, and the kernels by device time. ``--trace`` also writes
+MRConv selection kernels and of the fused block's product kernels, and the
+kernels by device time. ``--trace`` also writes
 the Chrome trace to that path.
 """
 
@@ -21,11 +23,29 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import time
 
 import torch
+
+
+def _kind(key: str):
+    """'forward', 'backward' or 'products' for the port's selection and
+    product kernels (csrc/mrconv_select.cuh, csrc/grapher_block.cu), by
+    demangled or mangled name; None for any other kernel."""
+    if "grapher_gemm" in key:
+        return "products"
+    if "mrconv_scatter_kernel" in key:
+        return "backward"
+    if "mrconv_rows_kernel" not in key:
+        return None
+    # mrconv_rows_kernel<T, TR, kBackward, kConcat>
+    args = key.split("mrconv_rows_kernel<", 1)[-1].split(">", 1)[0].split(", ")
+    if len(args) == 4:
+        return "backward" if args[2] == "true" else "forward"
+    return "backward" if re.search(r"Li\d+ELb1E", key) else "forward"
 
 
 def main() -> int:
@@ -34,6 +54,8 @@ def main() -> int:
                     "bsz_train (256) with --train")
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--train", action="store_true", help="profile a train step")
+    ap.add_argument("--fused", action="store_true",
+                    help="serve through GraphEncoder(fuse_serving='on')")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--trace", help="write the Chrome trace here")
     args = ap.parse_args()
@@ -67,12 +89,17 @@ def main() -> int:
         what = f"train step {args.dtype} bsz_train={cfg['bsz_train']}"
     else:
         cfg = Config(compute_dtype=args.dtype)
-        pipe = FingerprintPipeline(
-            build_model(cfg, generator=torch.Generator().manual_seed(0)), cfg)
+        model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+        if args.fused:
+            from chip_smoke import fused_model
+
+            model = fused_model(cfg, model.state_dict())
+        pipe = FingerprintPipeline(model, cfg)
         waves = torch.randn(args.batch or 128, cfg.clip_frames, device="cuda",
                             generator=gen)
         run = lambda: pipe.fingerprint_waves(waves)  # noqa: E731
-        what = f"forward {args.dtype} B={args.batch or 128}"
+        what = (f"{'fused ' if args.fused else ''}forward {args.dtype} "
+                f"B={args.batch or 128}")
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -93,17 +120,14 @@ def main() -> int:
         return 1
     print(f"{what}: wall {wall * 1e3:.3f} ms (profiler on), device busy "
           f"{busy:.3f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
-    mrconv = {"forward": 0.0, "backward": 0.0}
+    groups = {"forward": 0.0, "backward": 0.0, "products": 0.0}
     for ms, _, key in rows:
-        # pass A is mrconv_concat_kernel<T, TR, true>, mangled ...Lb1E...
-        if "mrconv_concat_bwd_scatter_kernel" in key or (
-                "mrconv_concat_kernel" in key and ("true>" in key or "Lb1E" in key)):
-            mrconv["backward"] += ms
-        elif "mrconv_concat_kernel" in key:
-            mrconv["forward"] += ms
-    print(f"MRConv kernels per iteration: forward {mrconv['forward']:.3f} ms, "
-          f"backward {mrconv['backward']:.3f} ms (normalize_rows_kernel "
-          "listed apart)")
+        kind = _kind(key)
+        if kind:
+            groups[kind] += ms
+    print(f"selection kernels per iteration: forward {groups['forward']:.3f} ms, "
+          f"backward {groups['backward']:.3f} ms (normalize_rows_kernel listed "
+          f"apart); fused block products {groups['products']:.3f} ms")
     for ms, count, key in rows[:30]:
         print(f"  {ms:9.3f} ms  x{count:<4d} {key[:110]}")
     if args.trace:

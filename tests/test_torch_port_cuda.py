@@ -10,6 +10,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from grafp_tpu_torch.models.gnn import Grapher  # noqa: E402
+from grafp_tpu_torch.models.layers import init_parameters  # noqa: E402
+from grafp_tpu_torch.ops.grapher_block import (  # noqa: E402
+    grapher_block,
+    grapher_block_reference,
+)
+from grafp_tpu_torch.ops.max_neighbors import (  # noqa: E402
+    MaxNeighbors,
+    max_neighbors,
+    max_neighbors_backward,
+    max_neighbors_backward_reference,
+    max_neighbors_reference,
+)
 from grafp_tpu_torch.ops.mrconv_concat import (  # noqa: E402
     MRConvConcat,
     mrconv_concat,
@@ -136,3 +149,112 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(card, fault):
     with pytest.raises((TypeError, ValueError)):
         mrconv_concat_backward(*args)
     assert mrconv_concat_backward.launches == before
+
+
+# --- max_neighbors (kernels #1 and #2) -------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_max_neighbors_kernels_match_plain_versions(card, dtype):
+    """Ragged shapes with a tie group of 20 rows and scaled copies: rel
+    within 1e-6 (f32) or one bf16 ulp of the plain version, dx within f32
+    summation order (1e-5 + 1e-5 |ref|) or one bf16 ulp (+1e-6); one launch
+    each, and two backward launches bit-equal."""
+    dt = getattr(torch, dtype)
+    x = _inputs(card, dt)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(card, dt)
+    f0, b0 = max_neighbors.launches, max_neighbors_backward.launches
+    rel = max_neighbors(x, 3)
+    dx, again = max_neighbors_backward(x, g, 3), max_neighbors_backward(x, g, 3)
+    torch.cuda.synchronize()
+    assert (max_neighbors.launches - f0, max_neighbors_backward.launches - b0) == (1, 2)
+    assert rel.dtype == dt and dx.dtype == dt and torch.equal(dx, again)
+    want_rel = max_neighbors_reference(x, 3).float()
+    want_dx = max_neighbors_backward_reference(x, g, 3).float()
+    if dt == torch.float32:
+        assert bool(((rel - want_rel).abs() <= 1e-6).all())
+        assert bool(((dx - want_dx).abs() <= 1e-5 + 1e-5 * want_dx.abs()).all())
+    else:
+        assert bool(((rel.float() - want_rel).abs() <= _bf16_ulp(want_rel)).all())
+        assert bool(((dx.float() - want_dx).abs() <= _bf16_ulp(want_dx) + 1e-6).all())
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 8])
+def test_max_neighbors_kernels_other_k(card, k):
+    x = _inputs(card, torch.float32, b=2, n=96, c=24)
+    g = torch.randn(2, 96, 24, device=card)
+    assert bool(((max_neighbors(x, k) - max_neighbors_reference(x, k)).abs() <= 1e-6).all())
+    got = max_neighbors_backward(x, g, k)
+    want = max_neighbors_backward_reference(x, g, k)
+    assert bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+
+
+def test_max_neighbors_autograd_launches_both_kernels(card):
+    x = _inputs(card, torch.float32, b=2, n=64, c=16).requires_grad_()
+    g = torch.randn(2, 64, 16, device=card)
+    f0, b0 = max_neighbors.launches, max_neighbors_backward.launches
+    (dx,) = torch.autograd.grad(MaxNeighbors.apply(x, 3), x, g)
+    torch.cuda.synchronize()
+    assert (max_neighbors.launches - f0, max_neighbors_backward.launches - b0) == (1, 1)
+    assert torch.equal(dx, max_neighbors_backward(x.detach(), g, 3))
+
+
+# --- grapher_block (kernel #5) ---------------------------------------------
+
+def _folded(card, dt, c, seed=2):
+    g = Grapher(c, k=3, fuse_serving="on", dtype=dt)
+    init_parameters(g, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for bn in (g.fc1_bn, g.gconv.bn, g.fc2_bn):
+            bn.running_mean.normal_(0.0, 0.3)
+            bn.running_var.uniform_(0.5, 2.0)
+    return g.to(card).eval()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grapher_block_kernel_matches_plain_version(card, dtype):
+    """Ragged shapes (N = 100, C = 40: no tile divides them) with a tie
+    group of 20 rows: the kernel equals the plain version within 1e-4 +
+    1e-4 |ref| (f32) or 3 bf16 ulps of each row's largest output (bf16),
+    and counts one launch."""
+    dt = getattr(torch, dtype)
+    g = _folded(card, dt, 40)
+    x = _inputs(card, dt, b=3, n=100, c=40)
+    ws = g.folded_weights(dt)
+    before = grapher_block.launches
+    got = grapher_block(x, 3, *ws).float()
+    want = grapher_block_reference(x, 3, *ws).float()
+    torch.cuda.synchronize()
+    assert grapher_block.launches == before + 1
+    if dt == torch.float32:
+        assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    else:
+        scale = want.abs().amax(-1, keepdim=True)
+        assert bool(((got - want).abs() <= 3 * _bf16_ulp(scale)).all())
+
+
+def test_fused_grapher_launches_the_kernel(card):
+    g = _folded(card, torch.bfloat16, 64)
+    x = torch.randn(2, 128, 64, device=card, dtype=torch.bfloat16)
+    f0, m0 = grapher_block.launches, mrconv_concat.launches
+    with torch.no_grad():
+        y = g(x)
+    torch.cuda.synchronize()
+    assert (grapher_block.launches - f0, mrconv_concat.launches - m0) == (1, 0)
+    assert y.shape == x.shape and bool(torch.isfinite(y.float()).all())
+
+
+@pytest.mark.parametrize("fault", ["weight_dtype", "bias_dtype", "shape"])
+def test_grapher_block_wrapper_rejects_what_the_kernel_does_not_take(card, fault):
+    g = _folded(card, torch.float32, 16)
+    x = torch.randn(2, 32, 16, device=card)
+    ws = list(g.folded_weights(torch.float32))
+    if fault == "weight_dtype":
+        ws[0] = ws[0].bfloat16()
+    elif fault == "bias_dtype":
+        ws[1] = ws[1].bfloat16()
+    else:
+        x = torch.randn(2, 128, 1024, device=card)
+    before = grapher_block.launches
+    with pytest.raises(ValueError):
+        grapher_block(x, 3, *ws)
+    assert grapher_block.launches == before

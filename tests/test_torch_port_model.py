@@ -110,7 +110,10 @@ def test_grapher_outside_the_slice_raises(kwargs):
 
 @pytest.mark.parametrize("override", [dict(serve_quant="int8"),
                                       dict(arch="nafp"),
-                                      dict(compute_dtype="float16")])
+                                      dict(compute_dtype="float16"),
+                                      dict(knn_strategy="onehot"),
+                                      dict(knn_strategy="exact"),
+                                      dict(knn_strategy="approx")])
 def test_build_model_rejects_unported_configs(override):
     with pytest.raises((NotImplementedError, ValueError)):
         build_model(Config(**override), device="cpu")
@@ -123,9 +126,8 @@ def test_entry_points_default_to_cuda():
         build_model(Config())
 
 
-def test_batchnorm_refuses_training_mode():
-    """Training mode was refused before the port had a train slice. Now
-    it normalises with the batch's statistics: a train-mode forward
+def test_batchnorm_train_mode_uses_batch_statistics():
+    """A train-mode forward normalises with the batch's statistics: it
     differs from the eval-mode one, moves every running statistic, and
     leaves the eval forward's running statistics alone; DropPath ('ramp')
     is still refused."""
