@@ -12,8 +12,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      tie-heavy and scaled-copy inputs, each with two launches bit-equal;
      the fused Grapher block at every stage shape its guard admits, on
      random and duplicate-row inputs, with weights folded from a
-     randomised Grapher (phases 6 and 7 repeat the first four at the op
-     and train paths' shapes, 2B = 512 in bf16);
+     randomised Grapher, and on random inputs at size s's stage shapes
+     (up to C = 640); phases 6 and 7 repeat the first four at the op and
+     train paths' shapes, 2B = 512 in bf16;
   4. the serving path: build_model(Config(compute_dtype='bfloat16')) with
      seeded random weights, FingerprintPipeline.fingerprint_waves on
      (128, 16000) waves with every launch count set to 0 just before and
@@ -64,6 +65,7 @@ def check(cond: bool, msg: str) -> None:
 
 B = 128                                                    # serving batch
 STAGES = ((1024, 64), (512, 128), (256, 256), (128, 512))   # (N, C), size t
+STAGES_S = ((1024, 80), (512, 160), (256, 400), (128, 640))  # size s
 BLOCKS = (2, 2, 6, 2)                                      # Graphers per stage
 K = 3
 TRAIN_STEPS = 5
@@ -475,6 +477,19 @@ def main() -> int:
                 note({"grapher_block": hold_grapher_block(
                     inputs[kind], ws, f"{str(dtype)[6:]} B={B} N={n} C={c} {kind}")})
             del inputs, ws
+            torch.cuda.empty_cache()
+    # the fused block at size s's widths, the widest the guard admits in the
+    # model's configurations (C = 640 in bf16)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, c in STAGES_S:
+            label = f"{str(dtype)[6:]} B={B} N={n} C={c} random (size s)"
+            if not grapher_block_supported(n, c, dtype, K):
+                print(f"grapher_block {label}: refused by the guard")
+                continue
+            x = torch.randn(B, n, c, generator=g, device="cuda").to(dtype)
+            note({"grapher_block": hold_grapher_block(
+                x, stage_weights(c, dtype, seed=10 + c), label)})
+            del x
             torch.cuda.empty_cache()
 
     # 4. serving path: wave -> fingerprint at full width, bf16
