@@ -75,7 +75,7 @@ OP_B = 512                     # the op path's batch, as the train path's 2B
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 F32_OPS_S = 67e12
-# near-tie band: rows of the plain version whose top-(k+1) scores have a
+# near-tie band: rows whose top-(k+1) scores (f64 dots of the keys) have a
 # gap inside (0, eps) may select differently (summation order differs
 # between the kernel and cuBLAS; in bf16 a norm one ulp apart can round a
 # normalised value to the other bf16 neighbour)
@@ -174,10 +174,12 @@ def op_keys(x: torch.Tensor) -> torch.Tensor:
 
 
 def near_ties(keys: torch.Tensor):
-    """Per row i of the plain version's scores on ``keys``: whether its
-    top-(k+1) scores have a gap in the near-tie band, and the (k+1)-th
-    score."""
-    xn = keys.float()
+    """Per row i of the scores on ``keys``: whether its top-(k+1) scores
+    have a gap in the near-tie band, and the (k+1)-th score. The scores
+    are taken in f64, exact for bf16 keys: an f32 product (the plain
+    version's, or the kernel's) can round two scores 1e-8 apart to one
+    value, a tie that the other side may not see."""
+    xn = keys.double()
     scores = torch.bmm(xn, xn.transpose(1, 2))
     top = scores.topk(K + 1, dim=-1).values
     gaps = top[..., :-1] - top[..., 1:]
@@ -449,7 +451,7 @@ def main() -> int:
     print("tolerance: mrconv_concat x half bit-equal; rel - x, rel and dx within "
           "1e-5 + 1e-5|ref| (f32) or one bf16 ulp; grapher_block within "
           f"{BLOCK_RTOL:g} + {BLOCK_RTOL:g}|ref| (f32) or {BLOCK_ULPS} bf16 ulps of "
-          "the row's largest output (bf16); all except on rows whose plain "
+          "the row's largest output (bf16); all except on rows whose f64 "
           "top-(k+1) scores (of x1 for grapher_block) have a gap in "
           f"(0, {NEAR_TIE_EPS[torch.float32]:g}) (f32) / "
           f"(0, {NEAR_TIE_EPS[torch.bfloat16]:g}) (bf16) (backward: their "

@@ -39,8 +39,8 @@
 // 8 x 8 fmaf accumulators per thread; f32 operands would lose bits on the
 // tensor cores' TF32 path). A simple kernel: x1, the keys, cat and g make a
 // round trip through device memory (scratch the caller allocates), the
-// tiles are loaded without an asynchronous pipeline, and the selection's
-// scores run on the f32 CUDA cores.
+// tiles are loaded without an asynchronous pipeline; the selection is
+// csrc/mrconv_select.cuh's (bf16 scores on the tensor cores).
 
 #include <mma.h>
 

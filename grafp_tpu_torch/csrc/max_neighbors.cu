@@ -25,9 +25,9 @@
 // 2*B*N^2*C at the dtype's peak, plus a compare and a select per score and
 // round, 2*k*B*N^2, on the f32 units (backward: plus the scatter's adds,
 // 2*k*B*N*C). What the design does about it: the (N, N) scores never leave
-// the chip and selection needs no sort. A simple kernel, far from either
-// bound: the scores are computed on the f32 CUDA cores, twice in the
-// forward and three times in the backward.
+// the chip and selection needs no sort; the selection is
+// csrc/mrconv_select.cuh's (bf16 scores on the tensor cores, twice in the
+// forward and three times in the backward), not a design of its own.
 
 #include "mrconv_select.cuh"
 

@@ -23,10 +23,13 @@
 //   Stage 1 is bound by operations, stages 2-4 (bf16) by bytes.
 // What this design does about it: the (N, N) scores never leave the chip
 // (the plain version moves 0.5 GB of scores and 3 masks per call at stage
-// 1), and selection needs no sort. It is a simple kernel, far from either
-// bound: the product runs on the f32 CUDA cores from shared memory with 4x4
-// register tiles, not on the tensor cores (wgmma), the scores are computed
-// twice, and the normalised rows make one round trip through memory.
+// 1), selection needs no sort, the bf16 scores run on the tensor cores
+// (mma.sync) and are selected from the accumulator registers, and row
+// tiles of 64 and key tiles of 128 leave no padded keys at N >= 128
+// (csrc/mrconv_select.cuh). Still far from the bound: the scores are
+// computed twice (levels, then the tie groups' bitmaps), selection and the
+// gathers are bound by instruction throughput and memory latency, and the
+// normalised rows make one round trip through memory.
 //
 // Two launches on the caller's stream. normalize_rows_kernel writes the
 // normalised rows, rounded to x's dtype, to a scratch array the caller
@@ -53,10 +56,11 @@
 // dx is bit-equal from run to run. Three launches: normalize_rows_kernel,
 // as in the forward; pass A, mrconv_rows_kernel<..., backward, concat>,
 // which writes the winners' cotangents G_r and the active levels to
-// scratch; pass B, mrconv_scatter_kernel<..., concat>, which gathers them
-// per key tile (csrc/mrconv_select.cuh describes both). A simple kernel:
-// the scores are computed three times on the f32 CUDA cores, not on the
-// tensor cores.
+// scratch; pass B, mrconv_keys_kernel<..., concat>, which gathers them
+// per key tile (csrc/mrconv_select.cuh describes both). The scores are
+// computed three times, in bf16 on the tensor cores; pass B computes each
+// (row tile, key tile) as pass A does, so its compares against pass A's
+// levels are exact.
 
 #include "mrconv_select.cuh"
 
@@ -78,7 +82,8 @@ extern "C" {
 // x, scratch, out: device pointers to contiguous (B, N, C), (B, N, C) and
 // (B, N, 2C) arrays of one dtype (0 = float32, 1 = bfloat16); scratch
 // receives the normalised rows. Returns the CUDA error of the launches (0
-// on success); the caller checks N >= k and 1 <= k <= kMaxK.
+// on success); the caller checks N >= k, 1 <= k <= kMaxK and k * N <=
+// kMaxKN.
 int mrconv_concat_forward(const void* x, void* scratch, void* out, int b, int n, int c,
                           int k, int dtype, void* stream) {
   if (bad_shape(b, n, c, k)) return cudaErrorInvalidValue;

@@ -1,6 +1,8 @@
 // k-NN max-relative selection on Hopper: the row kernel (forward, and pass
 // A of the backward) and the key kernel (pass B of the backward) shared by
 // csrc/mrconv_concat.cu, csrc/max_neighbors.cu and csrc/grapher_block.cu.
+// They are the body of the TPU kernels grafp_tpu/ops/pallas_knn.py:
+// _select_rounds / _one_forward (forward) and _one_backward (backward).
 //
 // rel(x)_i is the max over row i's k most similar nodes of their features,
 // under the Pallas kernels' selection rule (grafp_tpu/ops/pallas_knn.py:
@@ -24,35 +26,70 @@
 //   false: the forward writes rel (B, N, C) in x's dtype; the cotangent is
 //          g_rel (B, N, C) and there is no direct term.
 //
-// Row kernel: one block per (item, tile of TR rows), 256 threads, no state
-// carried between blocks:
-//   1. pass 1 over key tiles of KT = 4096/TR keys: score tile (normalised
-//      channels staged through shared memory in chunks of 32), then each
-//      thread folds its share of a row's scores into a private list of the
-//      row's k largest distinct levels and their counts; the lists of one
-//      row are merged with warp shuffles;
-//   2. pass 2 recomputes the same scores (the same chain of fmaf over the
-//      channels, so every score is bit-identical to pass 1) and adds the
-//      raw features of every key whose score equals an active round's level
-//      into per-(row, round) f32 sums in shared memory, in key order;
-//   3. mean per round, running max over active rounds, and the output row
-//      (forward) or, for the backward, per (row, channel) the winning round
-//      and G_r = g_rel / cnt_r rounded to the matmul dtype, written to
-//      scratch G (B, N, k, C), and the levels of the active non-empty rounds
-//      to scratch (B, N, k) f32 (NaN for the others, so they never match).
+// Bound on this card: the score product 2*B*N^2*C at the dtype's peak (989
+// TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32), a compare and a
+// select per score and round on the f32 units, or the bytes of x in and
+// the output written, whichever is larger (chip_smoke.py:bound_ms). The
+// product sets it at N = 1024, the bytes at N <= 512 in bf16. What the
+// design does about it: the (N, N) scores never leave the chip, bf16
+// scores run on the tensor cores, and no score goes through shared memory.
+//
+// Tiles. A score tile is 64 rows x 128 keys, computed by 8 warps as 4 x 2
+// warp tiles of 16 rows x 64 keys, so a row tile has 64 rows at every
+// stage and a key tile is no wider than N at N >= 128. A pass of scores
+// (ScorePass) runs the fixed tile against every tile of the other side:
+//   bf16: a stream of (tile, 64-channel step) items staged as bf16 by
+//         cp.async into a double buffer, zero-filled past N and C, the next
+//         item in flight while the warps run mma.sync m16n8k16 (bf16 x bf16
+//         -> f32) on ldmatrix fragments, 4 k-steps of 16 an item;
+//   f32:  32 channels a step, transposed, and one __fmaf_rn chain per score
+//         over the channels in order (the tensor cores would round f32 to
+//         TF32 and change the selection).
+// Either way a score is a fixed sequence of instructions on its own row
+// and key, in the same order for every tile: two passes that compute the
+// same (row tile, key tile) agree bit for bit, and identical (or power-of-
+// two scaled) rows tie exactly. Each thread then holds, in the mma
+// accumulator layout, the scores of 2 rows (g, g + 8 of its warp tile) x
+// 16 keys of a tile.
+//
+// Row kernel: one block per (item, tile of 64 rows), 256 threads; KC, the
+// levels a row keeps in registers, is 3 for k <= 3 (the models' k), else 8:
+//   1. pass 1: each thread folds its accumulator registers into a list of
+//      each of its two rows' k largest distinct levels with counts
+//      (topk_insert), taking a tile's distinct levels largest first and
+//      stopping at the first that cannot enter: at most k + 1 inserts a
+//      row and tile, whatever the number of scores. After each tile the
+//      quad shares its best k-th level, a bound under which no score can
+//      enter the row's top k. The lists of a row are merged across the
+//      quad with shuffles, then across the two warp columns through shared
+//      memory;
+//   2. pass 2 recomputes the scores and marks each key whose score equals
+//      an active round's level in a per-(row, round) bitmap over the N keys
+//      in shared memory (atomicOr, which is order-free);
+//   3. one warp per row walks the set bits in key order (HitWalk: a ballot
+//      over the bitmap words) and sums the raw features in f32 (Gather:
+//      lanes over channels, 128 at a time, four rows' loads in flight),
+//      then the means, the running max over active rounds, and the output
+//      row (forward) or, for the backward, per (row, channel) the winning
+//      round and G_r = g_rel / cnt_r rounded to the matmul dtype, written to
+//      scratch G (B, N, k, C), and the levels of the active non-empty
+//      rounds to scratch (B, N, k) f32 (NaN for the others, so they never
+//      match).
 // Tie groups may be as large as N (silent segments give identical rows),
-// so no per-row state holds indices: only levels, counts and sums.
+// so no per-row state holds indices: only levels, counts and bitmaps.
 //
-// Key kernel (pass B): one block per (item, tile of TR keys j); for every
-// row tile it recomputes s(j, i) with the same score_tile. A score is one
-// fmaf chain over the channels in order and fmaf is symmetric in its
-// factors, so s(j, i) == s(i, j) bit for bit and the compare against pass
-// A's levels is exact. Each hit adds the row's G_r into per-key f32 sums in
-// shared memory, in row order (one warp per key); then the direct term
-// (kConcat) and the cast. No float atomics: dx is bit-equal run to run.
+// Key kernel (pass B): one block per (item, tile of 128 keys j); it loops
+// over the row tiles and computes S(row tile, key tile) with the row tile
+// as the A operand and the same tiles, steps and k-order as pass A, so
+// every score is pass A's bit for bit by construction. A score equal to an
+// active level of row i marks bit i of a per-(key, round) bitmap over the
+// N rows; one warp per key then walks the set bits in row order and sums
+// G_r(i) in f32, then the direct term (kConcat) and the cast. No float
+// atomics: the sums run in the same order as in the f32 design before this
+// one (a chain per (row, round) or per key, in index order), so f32
+// outputs are bit-identical to it, and dx is bit-equal run to run.
 //
-// A simple design: the scores are computed on the f32 CUDA cores, twice in
-// the forward and three times in the backward, not on the tensor cores.
+// The bitmaps bound the shapes: k * N <= kMaxKN (every k <= 8 at N <= 1024).
 
 #pragma once
 
@@ -63,14 +100,24 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxK = 8;          // must match MAX_K in ops/mrconv_concat.py
-constexpr int kChunk = 32;        // channels staged per step
-constexpr int kTile = 4096;       // scores per (TR x KT) tile
+constexpr int kThreads = 256;            // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxK = 8;                 // must match MAX_K in ops/mrconv_concat.py
+constexpr int kSmallK = 3;               // levels in registers for k <= 3
+constexpr int kMaxKN = 8192;             // must match MAX_KN in ops/mrconv_concat.py
+constexpr int kRows = 64;                // row tile: 4 warp rows of 16 (the mma's M)
+constexpr int kKeys = 128;               // key tile: 2 warp columns of 64
+constexpr int kWarpKeys = 64;
+constexpr int kNT = kWarpKeys / 8;       // mma n8 tiles per warp
+constexpr int kStep16 = 64;              // bf16 channels staged per step
+constexpr int kPitch16 = kStep16 + 8;    // 144-byte rows: ldmatrix without bank conflicts
+constexpr int kStep32 = 32;              // f32 channels staged per step
+constexpr int kPitchA32 = kRows + 1;
+constexpr int kPitchB32 = kKeys + 2;     // even: float2 reads
+constexpr int kVec = 4;                  // channels per lane in the walks (128 a warp)
 constexpr float kEps = 1e-12f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr size_t kAccBudget = 96 * 1024;   // bytes of per-(row, round) sums
-constexpr size_t kSmemMax = 232448;        // 227 KB opt-in per block
+constexpr size_t kSmemMax = 232448;      // 227 KB opt-in per block
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -86,122 +133,391 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
-// Fold level s with count w into a descending list of at most k distinct
-// levels. Empty slots hold -inf with count 0. NaN and -inf scores never
-// enter (masked keys are written as NaN).
-__device__ __forceinline__ void topk_insert(float (&lv)[kMaxK], int (&ct)[kMaxK],
-                                            float& floor_lv, float s, int w, int k) {
+// Fold level s with count w into a descending list of at most k <= KC
+// distinct levels. Empty slots hold -inf with count 0. NaN and -inf scores
+// never enter. ix keeps the key of a level whose count is 1 (j: the key of
+// s when w is 1).
+template <int KC>
+__device__ __forceinline__ void topk_insert(float (&lv)[KC], int (&ct)[KC], int (&ix)[KC],
+                                            float& floor_lv, float s, int w, int j, int k) {
   if (!(s > -INFINITY) || s < floor_lv) return;
   bool equal = false;
 #pragma unroll
-  for (int r = 0; r < kMaxK; ++r) {
+  for (int r = 0; r < KC; ++r) {
     if (r < k && lv[r] == s) { ct[r] += w; equal = true; }
   }
   if (equal) return;
 #pragma unroll
-  for (int r = kMaxK - 1; r >= 0; --r) {
+  for (int r = KC - 1; r >= 0; --r) {
     if (r >= k) continue;
     if (r > 0 && lv[r - 1] < s) {
       lv[r] = lv[r - 1];
       ct[r] = ct[r - 1];
+      ix[r] = ix[r - 1];
     } else if (lv[r] < s) {
       lv[r] = s;
       ct[r] = w;
+      ix[r] = j;
     }
   }
 #pragma unroll
-  for (int r = 0; r < kMaxK; ++r) {
+  for (int r = 0; r < KC; ++r) {
     if (r == k - 1) floor_lv = lv[r];
   }
 }
 
-template <int TR>
-struct Layout {
-  static constexpr int KT = kTile / TR;      // keys per tile
-  static constexpr int TY = TR / 4;          // thread rows of the 4x4 micro-tiles
-  static constexpr int TX = KT / 4;          // thread columns
-  static constexpr int S = kThreads / TR;    // selection threads per row
-  static_assert(TY * TX == kThreads, "one 4x4 micro-tile per thread");
-  static_assert(S >= 1 && S <= 32 && (32 % S) == 0, "a row's threads share a warp");
-};
+// --- the score tile ---------------------------------------------------------
 
-template <int TR>
-size_t smem_bytes(int c, int k) {
-  using L = Layout<TR>;
-  size_t floats = (size_t)kChunk * (TR + 1)       // row chunk, transposed
-                  + (size_t)kChunk * (L::KT + 1)  // key chunk, transposed
-                  + (size_t)TR * (L::KT + 1)      // score tile
-                  + (size_t)TR * k * c            // per-(row, round) sums
-                  + (size_t)TR * kMaxK;           // levels
-  return 4 * (floats + (size_t)TR * kMaxK + TR);  // + counts, active rounds
+template <typename T> __host__ __device__ constexpr size_t stage_bytes();
+// two buffers of (64 rows + 128 keys) x 64 channels, bf16
+template <> __host__ __device__ constexpr size_t stage_bytes<__nv_bfloat16>() {
+  return 2 * (size_t)(kRows + kKeys) * kPitch16 * sizeof(__nv_bfloat16);
+}
+// one buffer of 32 channels x (64 rows, 128 keys), f32, transposed
+template <> __host__ __device__ constexpr size_t stage_bytes<float>() {
+  return (size_t)kStep32 * (kPitchA32 + kPitchB32) * sizeof(float);
 }
 
-// Score tile (TR x KT) for rows i0.. and keys j0.. into sc. Every score is
-// one fmaf chain over channels 0..C-1 in order, so a score depends only on
-// its two normalised vectors: pass 1 and pass 2 agree bit for bit, and
-// identical (or power-of-two scaled) rows tie exactly.
-template <typename T, int TR>
-__device__ __forceinline__ void score_tile(const T* __restrict__ xnb, int n, int c,
-                                           int i0, int j0,
-                                           float* rows_c, float* keys_c, float* sc) {
-  using L = Layout<TR>;
-  const int tid = threadIdx.x;
-  const int tx = tid % L::TX, ty = tid / L::TX;
-  float a[4][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) a[m][q] = 0.f;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  for (int c0 = 0; c0 < c; c0 += kChunk) {
-    __syncthreads();  // previous readers of the chunk and score buffers are done
-    for (int e = tid; e < TR * kChunk; e += kThreads) {
-      const int rr = e / kChunk, cc = e % kChunk;
-      const int i = i0 + rr, ch = c0 + cc;
-      float v = 0.f;
-      if (i < n && ch < c) v = to_f(xnb[(size_t)i * c + ch]);
-      rows_c[cc * (TR + 1) + rr] = v;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a (16 x 16, row-major) . b (16 x 8, col-major), bf16 in, f32 out
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Channels c0 .. c0+63 of rows i0.. (buffer rows 0..63) and keys j0..
+// (buffer rows 64..191), zero past n and c. vec: 16-byte cp.async (C a
+// multiple of 8, keys 16-byte aligned), else plain loads.
+__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* __restrict__ xnb, int n, int c,
+                                           int i0, int j0, int c0, __nv_bfloat16* buf,
+                                           bool vec) {
+  constexpr int kSegs = kStep16 / 8;
+  if (vec) {
+    for (int e = threadIdx.x; e < (kRows + kKeys) * kSegs; e += kThreads) {
+      const int rr = e / kSegs, ch = c0 + (e % kSegs) * 8;
+      const int node = rr < kRows ? i0 + rr : j0 + rr - kRows;
+      const bool ok = node < n && ch < c;
+      cp_async16(buf + rr * kPitch16 + (e % kSegs) * 8,
+                 ok ? xnb + (size_t)node * c + ch : xnb, ok);
     }
-    for (int e = tid; e < L::KT * kChunk; e += kThreads) {
-      const int kk = e / kChunk, cc = e % kChunk;
-      const int j = j0 + kk, ch = c0 + cc;
-      float v = 0.f;
-      if (j < n && ch < c) v = to_f(xnb[(size_t)j * c + ch]);
-      keys_c[cc * (L::KT + 1) + kk] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int cc = 0; cc < kChunk; ++cc) {
-      float ra[4], kb[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) ra[m] = rows_c[cc * (TR + 1) + ty + m * L::TY];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) kb[q] = keys_c[cc * (L::KT + 1) + tx + q * L::TX];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) a[m][q] = __fmaf_rn(ra[m], kb[q], a[m][q]);
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    for (int e = threadIdx.x; e < (kRows + kKeys) * kStep16; e += kThreads) {
+      const int rr = e / kStep16, cc = e % kStep16, ch = c0 + cc;
+      const int node = rr < kRows ? i0 + rr : j0 + rr - kRows;
+      buf[rr * kPitch16 + cc] = (node < n && ch < c) ? xnb[(size_t)node * c + ch] : zero;
     }
   }
-  const float nan = __int_as_float(0x7fc00000);
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int rr = ty + m * L::TY, kk = tx + q * L::TX;
-      sc[rr * (L::KT + 1) + kk] = (j0 + kk < n) ? a[m][q] : nan;
-    }
-  __syncthreads();
 }
 
-// Mean of round r's tie group at channel ch from the per-(row, round)
-// sums; an empty round gives 0 (the reference divides a zero sum by a count
-// floored at 1).
-__device__ __forceinline__ float round_mean(const float* acc_i, const int* cnt_i, int r,
-                                            int c, int ch) {
-  const int cr = cnt_i[r];
-  return cr > 0 ? acc_i[(size_t)r * c + ch] / (float)cr : 0.f;
+// One 16-channel-step group of the staged item into each warp's
+// accumulators, in the m16n8 layout: acc[t][2h + e] is row wr*16 + g + 8h,
+// key wc*64 + 8t + 2q + e (warp = wc*4 + wr, lane = 4g + q). ks: the
+// item's 16-channel steps (the last zero-padded).
+__device__ __forceinline__ void mma_item(const __nv_bfloat16* buf, int ks,
+                                         float (&acc)[kNT][4]) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wr = warp % 4, wc = warp / 4, m = lane / 8, r8 = lane % 8;
+  // ldmatrix row addresses: A as a0..a3 (rows 0-7 / 8-15 x k 0-7 / 8-15),
+  // B as (tile 2p, k 0-7), (2p, 8-15), (2p+1, 0-7), (2p+1, 8-15)
+  const __nv_bfloat16* a_row = buf + (wr * 16 + (m % 2) * 8 + r8) * kPitch16 + (m / 2) * 8;
+  const __nv_bfloat16* b_row =
+      buf + (kRows + wc * kWarpKeys + (m / 2) * 8 + r8) * kPitch16 + (m % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < kStep16 / 16; ++kk) {
+    if (kk < ks) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_row + kk * 16);
+#pragma unroll
+      for (int p = 0; p < kNT / 2; ++p) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, b_row + p * 16 * kPitch16 + kk * 16);
+        mma_bf16(acc[2 * p], a, bq[0], bq[1]);
+        mma_bf16(acc[2 * p + 1], a, bq[2], bq[3]);
+      }
+    }
+  }
 }
+
+// The largest of this thread's 16 scores of its row h (NaN ignored): a
+// tile whose largest score is under a row's bound needs no per-score test.
+__device__ __forceinline__ float row_max(const float (&acc)[kNT][4], int h) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int t = 0; t < kNT; ++t) m = fmaxf(m, fmaxf(acc[t][2 * h], acc[t][2 * h + 1]));
+  return m;
+}
+
+// Row i's active levels (NaN for the others) from the backward's scratch,
+// and the smallest of them (+inf if none).
+template <int KC>
+__device__ __forceinline__ void row_levels(const float* __restrict__ levels, int n, int k, int i,
+                                           float (&al)[KC], float& lo) {
+  lo = INFINITY;
+#pragma unroll
+  for (int r = 0; r < KC; ++r) {
+    al[r] = (i < n && r < k) ? levels[(size_t)i * k + r] : __int_as_float(0x7fc00000);
+    if (al[r] == al[r]) lo = fminf(lo, al[r]);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[kNT][4]) {
+#pragma unroll
+  for (int t = 0; t < kNT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+}
+
+// One pass of scores: the fixed tile (the rows from ``fixed`` when
+// kRowsFixed, else the keys from ``fixed``) against every tile of the
+// other side in order. next(acc, origin) computes the next tile into acc
+// and gives the first row or key of that tile; false at the end.
+template <typename T, bool kRowsFixed>
+struct ScorePass;
+
+// bf16: the tensor cores, on a stream of (tile, channel step) items through
+// a double buffer; the next item's cp.async is in flight while this one
+// runs and while the caller selects from acc.
+template <bool kRowsFixed>
+struct ScorePass<__nv_bfloat16, kRowsFixed> {
+  static constexpr int kBuf = (kRows + kKeys) * kPitch16;
+  static constexpr int kSpan = kRowsFixed ? kKeys : kRows;
+  const __nv_bfloat16* xnb;
+  __nv_bfloat16* bufs;
+  int n, c, fixed, steps, items, it;
+  bool vec;
+
+  __device__ __forceinline__ ScorePass(const __nv_bfloat16* xnb_, int n_, int c_, int fixed_,
+                                       void* stage)
+      : xnb(xnb_), bufs(static_cast<__nv_bfloat16*>(stage)), n(n_), c(c_), fixed(fixed_),
+        steps((c_ + kStep16 - 1) / kStep16), it(0),
+        vec(c_ % 8 == 0 && reinterpret_cast<uintptr_t>(xnb_) % 16 == 0) {
+    items = (n + kSpan - 1) / kSpan * steps;
+    stage_item(0);
+  }
+
+  __device__ __forceinline__ void stage_item(int item) {
+    const int o = item / steps * kSpan;
+    stage_bf16(xnb, n, c, kRowsFixed ? fixed : o, kRowsFixed ? o : fixed,
+               item % steps * kStep16, bufs + item % 2 * kBuf, vec);
+    cp_async_commit();
+  }
+
+  __device__ __forceinline__ bool next(float (&acc)[kNT][4], int& origin) {
+    if (it >= items) return false;
+    origin = it / steps * kSpan;
+    zero(acc);
+    for (int s = 0; s < steps; ++s, ++it) {
+      if (it + 1 < items) {
+        stage_item(it + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      // 16-channel steps in this item, the last zero-padded
+      mma_item(bufs + it % 2 * kBuf, min(kStep16, c - s * kStep16 + 15) / 16, acc);
+      __syncthreads();   // this buffer is free for the item after next
+    }
+    return true;
+  }
+};
+
+// f32: one fmaf chain per score over channels 0..C-1 in order (zero-padded
+// channels add exactly nothing).
+template <bool kRowsFixed>
+struct ScorePass<float, kRowsFixed> {
+  static constexpr int kSpan = kRowsFixed ? kKeys : kRows;
+  const float* xnb;
+  float* as;   // [channel][row]
+  float* bs;   // [channel][key]
+  int n, c, fixed, o;
+
+  __device__ __forceinline__ ScorePass(const float* xnb_, int n_, int c_, int fixed_,
+                                       void* stage)
+      : xnb(xnb_), as(static_cast<float*>(stage)),
+        bs(static_cast<float*>(stage) + kStep32 * kPitchA32), n(n_), c(c_), fixed(fixed_),
+        o(0) {}
+
+  __device__ __forceinline__ bool next(float (&acc)[kNT][4], int& origin) {
+    if (o >= n) return false;
+    origin = o;
+    const int i0 = kRowsFixed ? fixed : o, j0 = kRowsFixed ? o : fixed;
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int ra = (warp % 4) * 16 + lane / 4;
+    const int kb = (warp / 4) * kWarpKeys + 2 * (lane % 4);
+    zero(acc);
+    for (int c0 = 0; c0 < c; c0 += kStep32) {
+      __syncthreads();   // the previous step's (or tile's) readers are done
+      for (int e = tid; e < kRows * kStep32; e += kThreads) {
+        const int rr = e / kStep32, cc = e % kStep32, i = i0 + rr, ch = c0 + cc;
+        as[cc * kPitchA32 + rr] = (i < n && ch < c) ? xnb[(size_t)i * c + ch] : 0.f;
+      }
+      for (int e = tid; e < kKeys * kStep32; e += kThreads) {
+        const int kk = e / kStep32, cc = e % kStep32, j = j0 + kk, ch = c0 + cc;
+        bs[cc * kPitchB32 + kk] = (j < n && ch < c) ? xnb[(size_t)j * c + ch] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int cc = 0; cc < kStep32; ++cc) {
+        const float a0 = as[cc * kPitchA32 + ra], a1 = as[cc * kPitchA32 + ra + 8];
+#pragma unroll
+        for (int t = 0; t < kNT; ++t) {
+          const float2 bv = *reinterpret_cast<const float2*>(bs + cc * kPitchB32 + kb + 8 * t);
+          acc[t][0] = __fmaf_rn(a0, bv.x, acc[t][0]);
+          acc[t][1] = __fmaf_rn(a0, bv.y, acc[t][1]);
+          acc[t][2] = __fmaf_rn(a1, bv.x, acc[t][2]);
+          acc[t][3] = __fmaf_rn(a1, bv.y, acc[t][3]);
+        }
+      }
+    }
+    o += kSpan;
+    return true;
+  }
+};
+
+// --- the walks over the hit bitmaps -----------------------------------------
+
+// The set bits of the k bitmaps at ``bits`` (round r's ``words`` words at
+// bits + r * words) in index order: next(index, r), false at the end. Each
+// lane loads one word of every round, a ballot skips the empty words. The
+// whole warp walks every bit (warp-uniform).
+template <int KC>
+struct HitWalk {
+  const unsigned* bits;
+  int k, words, w0, src;
+  unsigned mine[KC], rb[KC], nz, m;
+
+  __device__ __forceinline__ HitWalk(const unsigned* bits_, int k_, int words_)
+      : bits(bits_), k(k_), words(words_), w0(-32), src(0), nz(0u), m(0u) {}
+
+  __device__ __forceinline__ bool next(int& index, int& round) {
+    while (m == 0u) {
+      if (nz == 0u) {   // the next 32 words
+        w0 += 32;
+        if (w0 >= words) return false;
+        const int w = w0 + (int)(threadIdx.x % 32);
+        unsigned any = 0u;
+#pragma unroll
+        for (int r = 0; r < KC; ++r) {
+          mine[r] = (r < k && w < words) ? bits[r * words + w] : 0u;
+          any |= mine[r];
+        }
+        nz = __ballot_sync(kFull, any != 0u);
+        continue;
+      }
+      src = __ffs(nz) - 1;
+      nz &= nz - 1;
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        rb[r] = __shfl_sync(kFull, mine[r], src);
+        m |= rb[r];
+      }
+    }
+    const unsigned bit = m & (0u - m);
+    m ^= bit;
+    round = 0;   // a score matches at most one round's level
+#pragma unroll
+    for (int q = 1; q < KC; ++q) {
+      if (rb[q] & bit) round = q;
+    }
+    index = (w0 + src) * 32 + __ffs(bit) - 1;
+    return true;
+  }
+};
+
+// f32 sums, in the order rows are pushed, of channels c0 + lane + 32 v
+// (v < V) of rows of T into sum[slot]. Rows are queued Q at a time, so
+// their loads are in flight together, and added oldest first. A group of
+// 32 channels past C is skipped by the whole warp.
+template <typename T, int S, int V, int Q>
+struct Gather {
+  float sum[S][V];
+  const T* row[Q];
+  int slot[Q];
+  int queued, c, c0, lane;
+
+  __device__ __forceinline__ Gather(int c_, int c0_)
+      : queued(0), c(c_), c0(c0_), lane((int)(threadIdx.x % 32)) {
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int v = 0; v < V; ++v) sum[s][v] = 0.f;
+#pragma unroll
+    for (int u = 0; u < Q; ++u) { row[u] = nullptr; slot[u] = 0; }
+  }
+
+  __device__ __forceinline__ void push(const T* p, int s) {
+#pragma unroll
+    for (int u = 0; u + 1 < Q; ++u) { row[u] = row[u + 1]; slot[u] = slot[u + 1]; }
+    row[Q - 1] = p;
+    slot[Q - 1] = s;
+    if (++queued == Q) flush();
+  }
+
+  // the queue holds row[Q - queued .. Q - 1], oldest first
+  __device__ __forceinline__ void load(float (&val)[Q][V]) const {
+#pragma unroll
+    for (int u = 0; u < Q; ++u)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int ch = c0 + lane + 32 * v;
+        val[u][v] = 0.f;
+        if (c0 + 32 * v < c && u >= Q - queued && ch < c) val[u][v] = to_f(row[u][ch]);
+      }
+  }
+
+  __device__ __forceinline__ void add(const float (&val)[Q][V]) {
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {
+      if (u < Q - queued) continue;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (s != slot[u]) continue;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          if (c0 + 32 * v < c) sum[s][v] += val[u][v];
+        }
+      }
+    }
+    queued = 0;
+  }
+
+  __device__ __forceinline__ void flush() {
+    float val[Q][V];
+    load(val);
+    add(val);
+  }
+};
 
 // Row j of x -> x_j / max(||x_j||, 1e-12), computed in f32 and rounded to
 // T (the matmul dtype). One warp per row; the sum of squares is one fmaf
@@ -224,251 +540,402 @@ normalize_rows_kernel(const T* __restrict__ x, T* __restrict__ xn, long long row
   for (int ch = lane; ch < c; ch += 32) xn[row * c + ch] = from_f<T>(to_f(xr[ch]) / nrm);
 }
 
+// KC: the levels each row keeps in registers (k <= KC).
 // kBackward = false: the forward, writes out ((B, N, 2C) for kConcat, else
 // (B, N, C)).
 // kBackward = true: pass A of the backward, reads g (same layouts) and
 // writes grs (B, N, k, C) and levels (B, N, k).
-template <typename T, int TR, bool kBackward, bool kConcat>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int KC, bool kBackward, bool kConcat>
+__global__ void __launch_bounds__(kThreads, 2)
 mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
                    T* __restrict__ out, const T* __restrict__ g,
                    T* __restrict__ grs, float* __restrict__ levels,
                    int n, int c, int k) {
-  using L = Layout<TR>;
-  extern __shared__ float smem[];
-  float* rows_c = smem;                                // kChunk x (TR+1)
-  float* keys_c = rows_c + kChunk * (TR + 1);          // kChunk x (KT+1)
-  float* sc = keys_c + kChunk * (L::KT + 1);           // TR x (KT+1)
-  float* acc = sc + TR * (L::KT + 1);                  // TR x k x c
-  float* lev = acc + (size_t)TR * k * c;               // TR x kMaxK
-  int* cnt = reinterpret_cast<int*>(lev + TR * kMaxK); // TR x kMaxK
-  int* nact = cnt + TR * kMaxK;                        // TR
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* lev = reinterpret_cast<float*>(smem + stage_bytes<T>());   // kRows x KC
+  int* cnt = reinterpret_cast<int*>(lev + kRows * KC);              // kRows x KC
+  int* nact = cnt + kRows * KC;                                     // kRows
+  int* key = nact + kRows;                                          // kRows x KC
+  int* tied = key + kRows * KC;                                     // kRows
+  unsigned* hits = reinterpret_cast<unsigned*>(tied + kRows);       // kRows x k x words
+  const int words = (n + 31) / 32;
 
-  const int tiles = (n + TR - 1) / TR;
+  const int tiles = (n + kRows - 1) / kRows;
   const int b = blockIdx.x / tiles;
-  const int i0 = (blockIdx.x % tiles) * TR;
+  const int i0 = (blockIdx.x % tiles) * kRows;
   const T* xb = x + (size_t)b * n * c;
   const T* xnb = xn + (size_t)b * n * c;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int kWarps = kThreads / 32;
-  constexpr int kWidth = kConcat ? 2 : 1;              // out and g row widths, in C
-
-  for (int e = tid; e < TR * k * c; e += kThreads) acc[e] = 0.f;
-
-  // 1. levels and counts
-  const int row = tid / L::S, sub = tid % L::S;
-  float lv[kMaxK];
-  int ct[kMaxK];
-#pragma unroll
-  for (int r = 0; r < kMaxK; ++r) { lv[r] = -INFINITY; ct[r] = 0; }
-  float floor_lv = -INFINITY;
-
-  for (int j0 = 0; j0 < n; j0 += L::KT) {
-    score_tile<T, TR>(xnb, n, c, i0, j0, rows_c, keys_c, sc);
-    for (int kk = sub; kk < L::KT; kk += L::S)
-      topk_insert(lv, ct, floor_lv, sc[row * (L::KT + 1) + kk], 1, k);
-  }
-  // merge the S partial lists of a row (its threads are adjacent lanes)
-#pragma unroll
-  for (int off = 1; off < L::S; off <<= 1) {
-    float olv[kMaxK];
-    int oct[kMaxK];
-#pragma unroll
-    for (int r = 0; r < kMaxK; ++r) {
-      olv[r] = __shfl_xor_sync(kFull, lv[r], off);
-      oct[r] = __shfl_xor_sync(kFull, ct[r], off);
-    }
-#pragma unroll
-    for (int r = 0; r < kMaxK; ++r) {
-      if (r < k && oct[r] > 0) topk_insert(lv, ct, floor_lv, olv[r], oct[r], k);
-    }
-  }
-  if (sub == 0) {
-    int consumed = 0, active = 0;
-#pragma unroll
-    for (int r = 0; r < kMaxK; ++r) {
-      lev[row * kMaxK + r] = lv[r];
-      cnt[row * kMaxK + r] = ct[r];
-      if (r < k && consumed < k) {
-        active = r + 1;
-        // an empty round still consumes one column (count floored at 1)
-        consumed += ct[r] > 0 ? ct[r] : 1;
-      }
-    }
-    nact[row] = active;
-    if constexpr (kBackward) {
-      const int i = i0 + row;
-      if (i < n) {
-        float* lo = levels + ((size_t)b * n + i) * k;
-        const float nan = __int_as_float(0x7fc00000);
-#pragma unroll
-        for (int r = 0; r < kMaxK; ++r) {
-          if (r < k) lo[r] = (r < active && ct[r] > 0) ? lv[r] : nan;
-        }
-      }
-    }
-  }
-  // (score_tile's first barrier publishes lev/cnt/nact and the zeroed sums)
-
-  // 2. sums of the features of each active round's tie group
-  for (int j0 = 0; j0 < n; j0 += L::KT) {
-    score_tile<T, TR>(xnb, n, c, i0, j0, rows_c, keys_c, sc);
-    for (int rr = warp; rr < TR; rr += kWarps) {
-      if (i0 + rr >= n) continue;
-      const int na = nact[rr];
-      for (int kk0 = 0; kk0 < L::KT; kk0 += 32) {
-        const int kk = kk0 + lane;
-        int round = -1;
-        if (kk < L::KT) {
-          const float s = sc[rr * (L::KT + 1) + kk];
-          for (int r = 0; r < na; ++r) {
-            if (cnt[rr * kMaxK + r] > 0 && s == lev[rr * kMaxK + r]) round = r;
-          }
-        }
-        unsigned hits = __ballot_sync(kFull, round >= 0);
-        while (hits) {
-          const int src = __ffs(hits) - 1;
-          hits &= hits - 1;
-          const int r = __shfl_sync(kFull, round, src);
-          const T* xj = xb + (size_t)(j0 + kk0 + src) * c;
-          float* dst = acc + ((size_t)rr * k + r) * c;
-          for (int ch = lane; ch < c; ch += 32) dst[ch] += to_f(xj[ch]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // 3. mean per round, running max over the active rounds, then the
-  //    output row (forward) or the winners' cotangents (backward)
-  for (int rr = warp; rr < TR; rr += kWarps) {
-    const int i = i0 + rr;
-    if (i >= n) continue;
-    const int na = nact[rr];
-    const float* acc_i = acc + (size_t)rr * k * c;
-    const int* cnt_i = cnt + rr * kMaxK;
-    for (int ch = lane; ch < c; ch += 32) {
-      float rel = -INFINITY;
-      for (int r = 0; r < na; ++r) rel = max_nan(rel, round_mean(acc_i, cnt_i, r, c, ch));
-      if constexpr (!kBackward) {
-        T* oi = out + ((size_t)b * n + i) * kWidth * c;
-        if constexpr (kConcat) {
-          const T xv = xb[(size_t)i * c + ch];
-          oi[ch] = xv;
-          oi[c + ch] = from_f<T>(to_f(from_f<T>(rel)) - to_f(xv));
-        } else {
-          oi[ch] = from_f<T>(rel);
-        }
-      } else {
-        // the first active round whose mean equals the running max wins
-        // (a NaN max has no winner, as in the reference's == test)
-        const float gv = to_f(g[((size_t)b * n + i) * kWidth * c + (kWidth - 1) * c + ch]);
-        T* gi = grs + ((size_t)b * n + i) * k * c;
-        bool claimed = false;
-        for (int r = 0; r < k; ++r) {
-          float gr = 0.f;
-          if (r < na && !claimed && round_mean(acc_i, cnt_i, r, c, ch) == rel) {
-            claimed = true;
-            gr = gv / (float)(cnt_i[r] > 0 ? cnt_i[r] : 1);
-          }
-          gi[(size_t)r * c + ch] = from_f<T>(gr);
-        }
-      }
-    }
-  }
-}
-
-// pass B of the backward: dx for one (item, tile of TR keys j)
-template <typename T, int TR, bool kConcat>
-__global__ void __launch_bounds__(kThreads)
-mrconv_scatter_kernel(const T* __restrict__ xn, const T* __restrict__ g,
-                      const T* __restrict__ grs,
-                      const float* __restrict__ levels,
-                      T* __restrict__ dx, int n, int c, int k) {
-  using L = Layout<TR>;
-  extern __shared__ float smem[];
-  float* rows_c = smem;                                // kChunk x (TR+1)
-  float* keys_c = rows_c + kChunk * (TR + 1);          // kChunk x (KT+1)
-  float* sc = keys_c + kChunk * (L::KT + 1);           // TR x (KT+1)
-  float* acc = sc + TR * (L::KT + 1);                  // TR x c
-  float* lvl = acc + (size_t)TR * c;                   // KT x kMaxK
-
-  const int tiles = (n + TR - 1) / TR;
-  const int b = blockIdx.x / tiles;
-  const int j0 = (blockIdx.x % tiles) * TR;
-  const T* xnb = xn + (size_t)b * n * c;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int kWarps = kThreads / 32;
+  const int wc = warp / 4, q = lane % 4;
+  const int row0 = (warp % 4) * 16 + lane / 4;   // this thread's rows: row0, row0 + 8
+  const int key0 = wc * kWarpKeys + 2 * q;       // and keys key0 + 8t + e of a tile
+  constexpr int kWidth = kConcat ? 2 : 1;        // out and g row widths, in C
   const float nan = __int_as_float(0x7fc00000);
 
-  for (int e = tid; e < TR * c; e += kThreads) acc[e] = 0.f;
+  for (int e = tid; e < kRows * k * words; e += kThreads) hits[e] = 0u;
 
-  for (int i0 = 0; i0 < n; i0 += L::KT) {
-    // sc[jj][ii] = s(j0 + jj, i0 + ii), NaN for i >= n
-    score_tile<T, TR>(xnb, n, c, j0, i0, rows_c, keys_c, sc);
-    for (int e = tid; e < L::KT * kMaxK; e += kThreads) {
-      const int ii = e / kMaxK, r = e % kMaxK, i = i0 + ii;
-      lvl[e] = (r < k && i < n) ? levels[((size_t)b * n + i) * k + r] : nan;
-    }
-    __syncthreads();
-    for (int jj = warp; jj < TR; jj += kWarps) {
-      if (j0 + jj >= n) continue;
-      float* dst = acc + (size_t)jj * c;
-      for (int kk0 = 0; kk0 < L::KT; kk0 += 32) {
-        const int kk = kk0 + lane;
-        int round = -1;
-        if (kk < L::KT) {
-          const float s = sc[jj * (L::KT + 1) + kk];
+  // 1. levels and counts, from the accumulators. own: this thread's k-th
+  //    level; fl: the quad's best, a bound no level of the row's top k is
+  //    under, so scores below it are skipped
+  float lv[2][KC], own[2], fl[2];
+  int ct[2][KC], ix[2][KC];
 #pragma unroll
-          for (int r = 0; r < kMaxK; ++r) {
-            if (s == lvl[kk * kMaxK + r]) round = r;
-          }
+  for (int h = 0; h < 2; ++h) {
+    own[h] = fl[h] = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < KC; ++r) { lv[h][r] = -INFINITY; ct[h][r] = 0; ix[h][r] = 0; }
+  }
+  float acc[kNT][4];
+  int j0;
+  ScorePass<T, true> pass1(xnb, n, c, i0, smem);
+  while (pass1.next(acc, j0)) {
+    if (j0 + kKeys > n) {   // keys past N never enter
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j0 + key0 + 8 * t + e % 2 >= n) acc[t][e] = -INFINITY;
         }
-        unsigned hits = __ballot_sync(kFull, round >= 0);
-        while (hits) {
-          const int src = __ffs(hits) - 1;
-          hits &= hits - 1;
-          const int r = __shfl_sync(kFull, round, src);
-          const T* gsrc = grs + (((size_t)b * n + i0 + kk0 + src) * k + r) * c;
-          for (int ch = lane; ch < c; ch += 32) dst[ch] += to_f(gsrc[ch]);
+    }
+    // this tile's distinct levels of each row, largest first, while one
+    // can still enter the row's top k: at most k + 1 rounds a row, so a
+    // warp runs the insert a few times a tile, not once a score
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = row_max(acc, h);
+      while (m > -INFINITY && m >= fl[h] && m >= own[h]) {
+        int w = 0, jm = 0;
+        float below = -INFINITY;
+#pragma unroll
+        for (int t = 0; t < kNT; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float s = acc[t][2 * h + e];
+            if (s == m) {
+              ++w;
+              jm = j0 + key0 + 8 * t + e;
+            } else if (s < m) {
+              below = fmaxf(below, s);
+            }
+          }
+        topk_insert<KC>(lv[h], ct[h], ix[h], own[h], m, w, jm, k);
+        m = below;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float f = own[h];
+      f = fmaxf(f, __shfl_xor_sync(kFull, f, 1));
+      fl[h] = fmaxf(f, __shfl_xor_sync(kFull, f, 2));
+    }
+  }
+  // merge a row's lists: across the quad (shuffles), then across the two
+  // warp columns (shared memory)
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float olv[KC];
+      int oct[KC], oix[KC];
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        olv[r] = __shfl_xor_sync(kFull, lv[h][r], off);
+        oct[r] = __shfl_xor_sync(kFull, ct[h][r], off);
+        oix[r] = __shfl_xor_sync(kFull, ix[h][r], off);
+      }
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        if (r < k && oct[r] > 0)
+          topk_insert<KC>(lv[h], ct[h], ix[h], own[h], olv[r], oct[r], oix[r], k);
+      }
+    }
+  }
+  if (wc == 1 && q == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        lev[(row0 + 8 * h) * KC + r] = lv[h][r];
+        cnt[(row0 + 8 * h) * KC + r] = ct[h][r];
+        key[(row0 + 8 * h) * KC + r] = ix[h][r];
+      }
+  }
+  __syncthreads();
+  int row_tied = 0;
+  if (wc == 0 && q == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = row0 + 8 * h;
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        const int oc = cnt[rr * KC + r];
+        if (r < k && oc > 0)
+          topk_insert<KC>(lv[h], ct[h], ix[h], own[h], lev[rr * KC + r], oc, key[rr * KC + r], k);
+      }
+      int consumed = 0, active = 0;
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        lev[rr * KC + r] = lv[h][r];
+        cnt[rr * KC + r] = ct[h][r];
+        if (r < k && consumed < k) {
+          active = r + 1;
+          // an empty round still consumes one column (count floored at 1)
+          consumed += ct[h][r] > 0 ? ct[h][r] : 1;
+        }
+      }
+      nact[rr] = active;
+      // a row whose active rounds each hold one key knows its tie groups
+      // and marks them here; a row with a larger group leaves it to pass 2
+      int tie = 0;
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        if (r < active && ct[h][r] > 1) tie = 1;
+      }
+      tied[rr] = tie;
+      row_tied |= tie && i0 + rr < n;
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        if (!tie && r < active && ct[h][r] == 1)
+          atomicOr(&hits[(rr * k + r) * words + ix[h][r] / 32], 1u << (ix[h][r] % 32));
+      }
+      if constexpr (kBackward) {
+        const int i = i0 + rr;
+        if (i < n) {
+          float* lo = levels + ((size_t)b * n + i) * k;
+#pragma unroll
+          for (int r = 0; r < KC; ++r) {
+            if (r < k) lo[r] = (r < active && ct[h][r] > 0) ? lv[h][r] : nan;
+          }
         }
       }
     }
-    // (the next score_tile's first barrier orders these reads before the
-    // next tile's writes of sc and lvl)
+  }
+  const bool any_tied = __syncthreads_or(row_tied);
+
+  // 2. for the rows with a tie group of two or more keys, mark the keys of
+  //    each active round's tie group
+  float al[2][KC], lo[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = row0 + 8 * h, na = nact[rr];
+    lo[h] = INFINITY;
+#pragma unroll
+    for (int r = 0; r < KC; ++r) {
+      al[h][r] = (r < na && cnt[rr * KC + r] > 0) ? lev[rr * KC + r] : nan;
+      if (al[h][r] == al[h][r] && i0 + rr < n && tied[rr]) lo[h] = fminf(lo[h], al[h][r]);
+    }
+  }
+  if (any_tied) {
+    ScorePass<T, true> pass2(xnb, n, c, i0, smem);
+    while (pass2.next(acc, j0)) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!(row_max(acc, h) >= lo[h])) continue;
+#pragma unroll
+        for (int t = 0; t < kNT; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + key0 + 8 * t + e;
+            const float s = acc[t][2 * h + e];
+            if (j >= n || !(s >= lo[h])) continue;
+#pragma unroll
+            for (int r = 0; r < KC; ++r) {
+              if (al[h][r] == s)
+                atomicOr(&hits[((row0 + 8 * h) * k + r) * words + j / 32], 1u << (j % 32));
+            }
+          }
+      }
+    }
   }
   __syncthreads();
 
-  // the direct term g_x - g_rel (kConcat), and dx in x's dtype
-  for (int jj = warp; jj < TR; jj += kWarps) {
-    const int j = j0 + jj;
-    if (j >= n) continue;
-    T* dj = dx + ((size_t)b * n + j) * c;
-    if constexpr (kConcat) {
-      const T* gj = g + ((size_t)b * n + j) * 2 * c;
-      for (int ch = lane; ch < c; ch += 32)
-        dj[ch] = from_f<T>(acc[(size_t)jj * c + ch] + (to_f(gj[ch]) - to_f(gj[c + ch])));
-    } else {
-      for (int ch = lane; ch < c; ch += 32) dj[ch] = from_f<T>(acc[(size_t)jj * c + ch]);
+  // 3. per row: the rounds' sums in key order, their means, the running
+  //    max over the active rounds, then the output row (forward) or the
+  //    winners' cotangents (backward). A warp takes two rows at a time, so
+  //    that the loads of both rows' gathers are in flight together.
+  for (int rr0 = warp; rr0 < kRows; rr0 += 2 * kWarps) {
+    for (int c0 = 0; c0 < c; c0 += 32 * kVec) {
+      Gather<T, KC, kVec, 4> sums[2]{{c, c0}, {c, c0}};
+      T own_v[2][kVec];   // x for the concat, g_rel for the backward
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int rr = rr0 + p * kWarps, i = i0 + rr;
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          const int ch = c0 + lane + 32 * v;
+          own_v[p][v] = from_f<T>(0.f);
+          if (i >= n || c0 + 32 * v >= c || ch >= c) continue;
+          if (kBackward)
+            own_v[p][v] = g[((size_t)b * n + i) * kWidth * c + (kWidth - 1) * c + ch];
+          else if (kConcat)
+            own_v[p][v] = xb[(size_t)i * c + ch];
+        }
+        if (i >= n) continue;
+        HitWalk<KC> walk(hits + (size_t)rr * k * words, k, words);
+        int j, r;
+        while (walk.next(j, r)) sums[p].push(xb + (size_t)j * c, r);
+      }
+      float val[2][4][kVec];
+      sums[0].load(val[0]);
+      sums[1].load(val[1]);
+      sums[0].add(val[0]);
+      sums[1].add(val[1]);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int rr = rr0 + p * kWarps, i = i0 + rr;
+        if (i >= n) continue;
+        const int na = nact[rr];
+        float mean[KC][kVec], rel[kVec];
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) rel[v] = -INFINITY;
+#pragma unroll
+        for (int r = 0; r < KC; ++r) {
+          // an empty round's mean is 0 (the reference divides a zero sum by
+          // a count floored at 1)
+          const int cr = r < na ? cnt[rr * KC + r] : 0;
+#pragma unroll
+          for (int v = 0; v < kVec; ++v) {
+            mean[r][v] = 0.f;
+            if (c0 + 32 * v >= c) continue;
+            if (cr > 0) mean[r][v] = sums[p].sum[r][v] / (float)cr;
+            if (r < na) rel[v] = max_nan(rel[v], mean[r][v]);
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          const int ch = c0 + lane + 32 * v;
+          if (ch >= c) continue;
+          if constexpr (!kBackward) {
+            T* oi = out + ((size_t)b * n + i) * kWidth * c;
+            if constexpr (kConcat) {
+              oi[ch] = own_v[p][v];
+              oi[c + ch] = from_f<T>(to_f(from_f<T>(rel[v])) - to_f(own_v[p][v]));
+            } else {
+              oi[ch] = from_f<T>(rel[v]);
+            }
+          } else {
+            // the first active round whose mean equals the running max wins
+            // (a NaN max has no winner, as in the reference's == test)
+            const float gv = to_f(own_v[p][v]);
+            T* gi = grs + ((size_t)b * n + i) * k * c;
+            bool claimed = false;
+#pragma unroll
+            for (int r = 0; r < KC; ++r) {
+              if (r >= k) continue;
+              float gr = 0.f;
+              if (r < na && !claimed && mean[r][v] == rel[v]) {
+                claimed = true;
+                const int cr = cnt[rr * KC + r];
+                gr = gv / (float)(cr > 0 ? cr : 1);
+              }
+              gi[(size_t)r * c + ch] = from_f<T>(gr);
+            }
+          }
+        }
+      }
     }
   }
 }
 
-int pick_rows(int c, int k) {
-  int tr = 64;
-  while (tr > 8 && (size_t)tr * k * c * 4 > kAccBudget) tr /= 2;
-  return tr;
-}
+// pass B of the backward: dx for one (item, tile of 128 keys j)
+template <typename T, int KC, bool kConcat>
+__global__ void __launch_bounds__(kThreads, 2)
+mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
+                   const T* __restrict__ grs, const float* __restrict__ levels,
+                   T* __restrict__ dx, int n, int c, int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* hits = reinterpret_cast<unsigned*>(smem + stage_bytes<T>());  // kKeys x k x words
+  const int words = (n + 31) / 32;
 
-// pass B: score staging and tile as in smem_bytes, per-key f32 sums of dx,
-// and the staged levels of one row tile
-template <int TR>
-size_t scatter_smem_bytes(int c) {
-  using L = Layout<TR>;
-  size_t floats = (size_t)kChunk * (TR + 1) + (size_t)kChunk * (L::KT + 1)
-                  + (size_t)TR * (L::KT + 1) + (size_t)TR * c
-                  + (size_t)L::KT * kMaxK;
-  return 4 * floats;
+  const int tiles = (n + kKeys - 1) / kKeys;
+  const int b = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x % tiles) * kKeys;
+  const T* xnb = xn + (size_t)b * n * c;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row0 = (warp % 4) * 16 + lane / 4;
+  const int key0 = (warp / 4) * kWarpKeys + 2 * (lane % 4);
+
+  for (int e = tid; e < kKeys * k * words; e += kThreads) hits[e] = 0u;
+
+  // the row tiles as the A operand, pass A's tiles and k-order: a score
+  // equal to an active level of its row marks the row in the key's bitmap
+  // (the levels of a row tile are loaded while the tile before it runs)
+  const float* levels_b = levels + (size_t)b * n * k;
+  float acc[kNT][4], al[2][KC], lo[2];
+  int i0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) row_levels<KC>(levels_b, n, k, row0 + 8 * h, al[h], lo[h]);
+  ScorePass<T, false> pass(xnb, n, c, j0, smem);
+  while (pass.next(acc, i0)) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + row0 + 8 * h;
+      if (row_max(acc, h) >= lo[h]) {
+#pragma unroll
+        for (int t = 0; t < kNT; ++t)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jj = key0 + 8 * t + e;
+            const float s = acc[t][2 * h + e];
+            if (j0 + jj >= n || !(s >= lo[h])) continue;
+#pragma unroll
+            for (int r = 0; r < KC; ++r) {
+              if (al[h][r] == s) atomicOr(&hits[(jj * k + r) * words + i / 32], 1u << (i % 32));
+            }
+          }
+      }
+      row_levels<KC>(levels_b, n, k, i + kRows, al[h], lo[h]);
+    }
+  }
+  __syncthreads();
+
+  // per key: G_r(i) of every marking row i, in row order; then the direct
+  // term g_x - g_rel (kConcat) and dx in x's dtype. A warp takes two keys
+  // at a time, so that the loads of both keys' gathers are in flight
+  // together.
+  for (int jj0 = warp; jj0 < kKeys; jj0 += 2 * kWarps) {
+    for (int c0 = 0; c0 < c; c0 += 32 * kVec) {
+      Gather<T, 1, kVec, 4> sums[2]{{c, c0}, {c, c0}};
+      float direct[2][kVec];   // g_x - g_rel, loaded before the walk
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int jj = jj0 + p * kWarps, j = j0 + jj;
+        const T* gj = g + ((size_t)b * n + j) * 2 * c;
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          const int ch = c0 + lane + 32 * v;
+          direct[p][v] = 0.f;
+          if (kConcat && j < n && c0 + 32 * v < c && ch < c)
+            direct[p][v] = to_f(gj[ch]) - to_f(gj[c + ch]);
+        }
+        if (j >= n) continue;
+        HitWalk<KC> walk(hits + (size_t)jj * k * words, k, words);
+        int i, r;
+        while (walk.next(i, r)) sums[p].push(grs + (((size_t)b * n + i) * k + r) * c, 0);
+      }
+      float val[2][4][kVec];
+      sums[0].load(val[0]);
+      sums[1].load(val[1]);
+      sums[0].add(val[0]);
+      sums[1].add(val[1]);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int j = j0 + jj0 + p * kWarps;
+        if (j >= n) continue;
+        T* dj = dx + ((size_t)b * n + j) * c;
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          const int ch = c0 + lane + 32 * v;
+          if (ch >= c) continue;
+          if constexpr (kConcat) {
+            dj[ch] = from_f<T>(sums[p].sum[0][v] + direct[p][v]);
+          } else {
+            dj[ch] = from_f<T>(sums[p].sum[0][v]);
+          }
+        }
+      }
+    }
+  }
 }
 
 template <typename T>
@@ -491,54 +958,55 @@ cudaError_t normalize(const T* x, T* xn, long long rows, int c, cudaStream_t str
   return cudaGetLastError();
 }
 
-template <typename T, int TR, bool kBackward, bool kConcat>
+// Opt in to ``smem`` bytes of dynamic shared memory and check the grid.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem, long long blocks) {
+  if (smem > kSmemMax || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, int KC, bool kBackward, bool kConcat>
 cudaError_t launch_rows(const Args<T>& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<TR>(a.c, a.k);
-  if (smem > kSmemMax) return cudaErrorInvalidValue;
-  auto kernel = mrconv_rows_kernel<T, TR, kBackward, kConcat>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // staging; levels, counts and keys; active rounds and tie flags; hit
+  // bitmaps over the keys
+  const size_t smem = stage_bytes<T>() + (size_t)kRows * KC * 12 + (size_t)kRows * 8 +
+                      (size_t)kRows * a.k * ((a.n + 31) / 32) * 4;
+  const long long blocks = (long long)a.b * ((a.n + kRows - 1) / kRows);
+  auto kernel = mrconv_rows_kernel<T, KC, kBackward, kConcat>;
+  cudaError_t err = prepare(kernel, smem, blocks);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)a.b * ((a.n + TR - 1) / TR);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(a.x, a.xn, a.out, a.g, a.grs,
                                                       a.levels, a.n, a.c, a.k);
   return cudaGetLastError();
 }
 
-template <typename T, int TR, bool kConcat>
-cudaError_t launch_scatter(const Args<T>& a, cudaStream_t stream) {
-  const size_t smem = scatter_smem_bytes<TR>(a.c);
-  if (smem > kSmemMax) return cudaErrorInvalidValue;
-  auto kernel = mrconv_scatter_kernel<T, TR, kConcat>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename T, int KC, bool kConcat>
+cudaError_t launch_keys(const Args<T>& a, cudaStream_t stream) {
+  // staging, hit bitmaps over the rows
+  const size_t smem = stage_bytes<T>() + (size_t)kKeys * a.k * ((a.n + 31) / 32) * 4;
+  const long long blocks = (long long)a.b * ((a.n + kKeys - 1) / kKeys);
+  auto kernel = mrconv_keys_kernel<T, KC, kConcat>;
+  cudaError_t err = prepare(kernel, smem, blocks);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)a.b * ((a.n + TR - 1) / TR);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(a.xn, a.g, a.grs, a.levels, a.dx,
                                                       a.n, a.c, a.k);
   return cudaGetLastError();
 }
 
+template <typename T, int KC, bool kBackward, bool kConcat>
+cudaError_t select_rows_kc(const Args<T>& a, cudaStream_t s) {
+  cudaError_t err = launch_rows<T, KC, kBackward, kConcat>(a, s);
+  if (!kBackward || err != cudaSuccess) return err;
+  return launch_keys<T, KC, kConcat>(a, s);
+}
+
 // The row kernel on keys a.xn that are already in place; for the backward
-// (pass A) then pass B.
+// (pass A) then pass B. k <= 3 (the models' k) keeps 3 levels per row in
+// registers, a larger k kMaxK.
 template <typename T, bool kBackward, bool kConcat>
 cudaError_t select_rows(const Args<T>& a, cudaStream_t s) {
-  cudaError_t err;
-  switch (pick_rows(a.c, a.k)) {
-    case 64: err = launch_rows<T, 64, kBackward, kConcat>(a, s); break;
-    case 32: err = launch_rows<T, 32, kBackward, kConcat>(a, s); break;
-    case 16: err = launch_rows<T, 16, kBackward, kConcat>(a, s); break;
-    default: err = launch_rows<T, 8, kBackward, kConcat>(a, s); break;
-  }
-  if (!kBackward || err != cudaSuccess) return err;
-  switch (pick_rows(a.c, 1)) {
-    case 64: return launch_scatter<T, 64, kConcat>(a, s);
-    case 32: return launch_scatter<T, 32, kConcat>(a, s);
-    case 16: return launch_scatter<T, 16, kConcat>(a, s);
-    default: return launch_scatter<T, 8, kConcat>(a, s);
-  }
+  if (a.k <= kSmallK) return select_rows_kc<T, kSmallK, kBackward, kConcat>(a, s);
+  return select_rows_kc<T, kMaxK, kBackward, kConcat>(a, s);
 }
 
 template <typename T>
@@ -550,7 +1018,8 @@ Args<T> make_args(const void* x, void* xn, void* out, const void* g, void* grs,
 }
 
 bool bad_shape(int b, int n, int c, int k) {
-  return b < 1 || n < 1 || c < 1 || k < 1 || k > kMaxK || n < k;
+  return b < 1 || n < 1 || c < 1 || k < 1 || k > kMaxK || n < k ||
+         (long long)k * n > kMaxKN;
 }
 
 }  // namespace

@@ -42,6 +42,8 @@ from grafp_tpu_torch.ops.build import load_library
 
 # the kernel keeps each row's top-k score levels in registers
 MAX_K = 8
+# and marks hits in shared-memory bitmaps of k * N bits per row or key
+MAX_KN = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -169,6 +171,8 @@ def _check_kernel_input(x: torch.Tensor, k: int, what: str) -> None:
     _check_nk(x.shape[1], k)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"{what}: k={k} outside 1..{MAX_K}")
+    if k * x.shape[1] > MAX_KN:
+        raise ValueError(f"{what}: k * N = {k * x.shape[1]} above {MAX_KN}")
 
 
 def _raise_on(error_fn, err: int, what: str) -> None:

@@ -34,18 +34,24 @@ import torch
 def _kind(key: str):
     """'forward', 'backward' or 'products' for the port's selection and
     product kernels (csrc/mrconv_select.cuh, csrc/grapher_block.cu), by
-    demangled or mangled name; None for any other kernel."""
+    demangled or mangled name; None for any other kernel.
+
+    mrconv_rows_kernel<T, KC, kBackward, kConcat> is the forward, or pass A
+    of the backward; mrconv_keys_kernel<T, KC, kConcat> is pass B."""
     if "grapher_gemm" in key:
         return "products"
-    if "mrconv_scatter_kernel" in key:
+    if "mrconv_keys_kernel" in key:
         return "backward"
     if "mrconv_rows_kernel" not in key:
         return None
-    # mrconv_rows_kernel<T, TR, kBackward, kConcat>
+    # demangled: mrconv_rows_kernel<T, KC, kBackward, kConcat>
     args = key.split("mrconv_rows_kernel<", 1)[-1].split(">", 1)[0].split(", ")
-    if len(args) == 4:
-        return "backward" if args[2] == "true" else "forward"
-    return "backward" if re.search(r"Li\d+ELb1E", key) else "forward"
+    flags = [a for a in args if a in ("true", "false")]
+    if flags:
+        return "backward" if flags[0] == "true" else "forward"
+    # mangled: mrconv_rows_kernelI<T>Li<KC>ELb<kBackward>ELb<kConcat>E...
+    flag = re.search(r"mrconv_rows_kernelI.*?Lb([01])E", key)
+    return "backward" if flag and flag.group(1) == "1" else "forward"
 
 
 def main() -> int:

@@ -25,6 +25,7 @@ from grafp_tpu_torch.ops.max_neighbors import (  # noqa: E402
 )
 from grafp_tpu_torch.ops.mrconv_concat import (  # noqa: E402
     MRConvConcat,
+    _norm_rows_f32,
     mrconv_concat,
     mrconv_concat_backward,
     mrconv_concat_backward_reference,
@@ -77,11 +78,12 @@ def test_kernel_other_k(card, k):
     assert bool(((got - want).abs() <= 1e-6).all())
 
 
-@pytest.mark.parametrize("fault", ["dtype", "contiguous", "k", "rank"])
+@pytest.mark.parametrize("fault", ["dtype", "contiguous", "k", "rank", "kn"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(card, fault):
     x = torch.randn(2, 64, 16, device=card)
     args = {"dtype": (x.half(), 3), "contiguous": (x.transpose(1, 2), 3),
-            "k": (x, 9), "rank": (x[0], 3)}[fault]
+            "k": (x, 9), "rank": (x[0], 3),
+            "kn": (torch.randn(1, 1100, 8, device=card), 8)}[fault]
     before = mrconv_concat.launches
     with pytest.raises((TypeError, ValueError)):
         mrconv_concat(*args)
@@ -149,6 +151,85 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(card, fault):
     with pytest.raises((TypeError, ValueError)):
         mrconv_concat_backward(*args)
     assert mrconv_concat_backward.launches == before
+
+
+# --- the selection's tiles at their edges (kernels #3 and #4) ---------------
+
+# chip_smoke.py's near-tie band
+NEAR_TIE_EPS = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+# (B, N, C, k) and how the rows tie. Tiles: 64 rows x 128 keys, channels
+# in steps of 16 (bf16, zero-padded) or 32 (f32).
+_EDGES = {
+    "N100-C40": (2, 100, 40, 3, None),             # N under one key tile, not a multiple of 16
+    "N3-k3-C24": (2, 3, 24, 3, None),              # N = k
+    "C24": (2, 160, 24, 3, None),                  # C not a multiple of 16
+    "C640": (2, 96, 640, 3, None),
+    "all-identical": (2, 130, 40, 3, "item"),      # item 1: a tie group of N in round 0
+    "tie-across-row-tiles": (2, 200, 64, 3, "span"),   # rows 40-89: pass B's gather
+    "B1-k8": (1, 150, 40, 8, None),
+}
+
+
+def _edge_inputs(card, dt, b, n, c, ties):
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(b, n, c, generator=gen)
+    if ties == "item":
+        x[1] = x[1, :1]
+    elif ties == "span":
+        x[:, 40:90] = x[:, 40:41]
+    g = torch.randn(b, n, 2 * c, generator=gen)
+    return x.to(card, dt), g.to(card, dt)
+
+
+def _near_tie_rows(x, k, backward):
+    """(B, N): rows whose top-(k+1) scores (in f64, as chip_smoke.py
+    takes them) have a gap in (0, eps); for dx, every row among the
+    top-(k+1) of such a row."""
+    xn = _norm_rows_f32(x).to(x.dtype).double()
+    scores = xn @ xn.transpose(1, 2)
+    top = scores.topk(min(k + 1, x.shape[1]), dim=-1).values
+    gaps = top[..., :-1] - top[..., 1:]
+    near = ((gaps > 0) & (gaps < NEAR_TIE_EPS[x.dtype])).any(-1)
+    if not backward:
+        return near
+    return ((scores >= top[..., -1:]) & near[..., None]).any(1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(_EDGES))
+def test_selection_tile_edges(card, case, dtype):
+    """The forward (rel - x) and the backward (dx) at the edges of the
+    kernels' tiles, against the plain versions, two launches bit-equal.
+    rel - x within 1e-6 (f32) or one bf16 ulp; dx within 1e-5 + 1e-5 |ref|
+    (f32) or one bf16 ulp + 1e-6. Rows with a near tie in the plain
+    version's top-(k+1) scores (chip_smoke.py's band: a gap in (0, 1e-4)
+    in f32, (0, 1e-3) in bf16; for dx, those rows' top-(k+1) rows) may
+    differ, at most 1 % of the rows or one: the bf16 scores come from the
+    tensor cores, which add each 16-channel step's products in another
+    order than the plain version's matmul, so a near tie can flip there
+    that the f32 fmaf chain keeps."""
+    dt = getattr(torch, dtype)
+    b, n, c, k, ties = _EDGES[case]
+    x, g = _edge_inputs(card, dt, b, n, c, ties)
+    out, out2 = mrconv_concat(x, k), mrconv_concat(x, k)
+    dx, dx2 = mrconv_concat_backward(x, g, k), mrconv_concat_backward(x, g, k)
+    want_out = mrconv_concat_reference(x, k)
+    want_dx = mrconv_concat_backward_reference(x, g, k).float()
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(dx, dx2)
+    assert torch.equal(out[..., :c], x)
+    rel, want_rel = out[..., c:].float(), want_out[..., c:].float()
+    if dt == torch.float32:
+        ok_rel = (rel - want_rel).abs() <= 1e-6
+        ok_dx = (dx - want_dx).abs() <= 1e-5 + 1e-5 * want_dx.abs()
+    else:
+        ok_rel = (rel - want_rel).abs() <= _bf16_ulp(want_rel)
+        ok_dx = (dx.float() - want_dx).abs() <= _bf16_ulp(want_dx) + 1e-6
+    for ok, backward in ((ok_rel, False), (ok_dx, True)):
+        bad = ~ok.all(-1)
+        assert not bool((bad & ~_near_tie_rows(x, k, backward)).any())
+        assert int(bad.sum()) <= max(1, 0.01 * bad.numel())
 
 
 # --- max_neighbors (kernels #1 and #2) -------------------------------------
