@@ -26,8 +26,8 @@
 // round, 2*k*B*N^2, on the f32 units (backward: plus the scatter's adds,
 // 2*k*B*N*C). What the design does about it: the (N, N) scores never leave
 // the chip and selection needs no sort; the selection is
-// csrc/mrconv_select.cuh's (bf16 scores on the tensor cores, twice in the
-// forward and three times in the backward), not a design of its own.
+// csrc/mrconv_select.cuh's (bf16 scores on the tensor cores, a second time
+// only for row tiles with a tie group), not a design of its own.
 
 #include "mrconv_select.cuh"
 

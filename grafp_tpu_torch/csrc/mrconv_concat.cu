@@ -26,10 +26,10 @@
 // 1), selection needs no sort, the bf16 scores run on the tensor cores
 // (mma.sync) and are selected from the accumulator registers, and row
 // tiles of 64 and key tiles of 128 leave no padded keys at N >= 128
-// (csrc/mrconv_select.cuh). Still far from the bound: the scores are
-// computed twice (levels, then the tie groups' bitmaps), selection and the
-// gathers are bound by instruction throughput and memory latency, and the
-// normalised rows make one round trip through memory.
+// (csrc/mrconv_select.cuh). Still far from the bound: at N = 1024 the fold
+// of the scores into the level lists is bound by instruction throughput,
+// a row tile with a tie group of two or more keys computes its scores a
+// second time, and the normalised rows make one round trip through memory.
 //
 // Two launches on the caller's stream. normalize_rows_kernel writes the
 // normalised rows, rounded to x's dtype, to a scratch array the caller
@@ -58,9 +58,9 @@
 // which writes the winners' cotangents G_r and the active levels to
 // scratch; pass B, mrconv_keys_kernel<..., concat>, which gathers them
 // per key tile (csrc/mrconv_select.cuh describes both). The scores are
-// computed three times, in bf16 on the tensor cores; pass B computes each
-// (row tile, key tile) as pass A does, so its compares against pass A's
-// levels are exact.
+// computed two or three times, in bf16 on the tensor cores; pass B computes
+// each (row tile, key tile) as pass A does, so its compares against pass
+// A's levels are exact.
 
 #include "mrconv_select.cuh"
 

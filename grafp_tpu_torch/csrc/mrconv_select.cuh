@@ -66,10 +66,11 @@
 //   2. pass 2 recomputes the scores and marks each key whose score equals
 //      an active round's level in a per-(row, round) bitmap over the N keys
 //      in shared memory (atomicOr, which is order-free);
-//   3. one warp per row walks the set bits in key order (HitWalk: a ballot
-//      over the bitmap words) and sums the raw features in f32 (Gather:
-//      lanes over channels, 128 at a time, four rows' loads in flight),
-//      then the means, the running max over active rounds, and the output
+//   3. four threads per row, each over 16 channels at a time (8 for k >
+//      3), walk the set bits in key order and sum the raw features in f32
+//      registers with 16-byte loads, so that every thread keeps its own
+//      rows' loads in flight. Then the means, the running max over the
+//      active rounds, and the output
 //      row (forward) or, for the backward, per (row, channel) the winning
 //      round and G_r = g_rel / cnt_r rounded to the matmul dtype, written to
 //      scratch G (B, N, k, C), and the levels of the active non-empty
@@ -83,11 +84,13 @@
 // as the A operand and the same tiles, steps and k-order as pass A, so
 // every score is pass A's bit for bit by construction. A score equal to an
 // active level of row i marks bit i of a per-(key, round) bitmap over the
-// N rows; one warp per key then walks the set bits in row order and sums
-// G_r(i) in f32, then the direct term (kConcat) and the cast. No float
-// atomics: the sums run in the same order as in the f32 design before this
-// one (a chain per (row, round) or per key, in index order), so f32
-// outputs are bit-identical to it, and dx is bit-equal run to run.
+// N rows; two threads per key, 32 channels each at a time, then walk the
+// set bits in row order and sum G_r(i) in f32, then the direct term
+// (kConcat) and the cast. No float atomics: the sums run in the same order
+// as in the f32 design before this one (a chain per (row, round) or per
+// key, in index order), so f32 outputs are bit-identical to it, and dx is
+// bit-equal run to run. The bitmaps' per-row and per-key strides are odd,
+// so the threads' walks read distinct shared-memory banks.
 //
 // The bitmaps bound the shapes: k * N <= kMaxKN (every k <= 8 at N <= 1024).
 
@@ -101,7 +104,6 @@
 namespace {
 
 constexpr int kThreads = 256;            // 8 warps
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 8;                 // must match MAX_K in ops/mrconv_concat.py
 constexpr int kSmallK = 3;               // levels in registers for k <= 3
 constexpr int kMaxKN = 8192;             // must match MAX_KN in ops/mrconv_concat.py
@@ -114,7 +116,6 @@ constexpr int kPitch16 = kStep16 + 8;    // 144-byte rows: ldmatrix without bank
 constexpr int kStep32 = 32;              // f32 channels staged per step
 constexpr int kPitchA32 = kRows + 1;
 constexpr int kPitchB32 = kKeys + 2;     // even: float2 reads
-constexpr int kVec = 4;                  // channels per lane in the walks (128 a warp)
 constexpr float kEps = 1e-12f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kSmemMax = 232448;      // 227 KB opt-in per block
@@ -405,119 +406,113 @@ struct ScorePass<float, kRowsFixed> {
   }
 };
 
-// --- the walks over the hit bitmaps -----------------------------------------
+// --- the walks' row loads and stores -----------------------------------------
 
-// The set bits of the k bitmaps at ``bits`` (round r's ``words`` words at
-// bits + r * words) in index order: next(index, r), false at the end. Each
-// lane loads one word of every round, a ballot skips the empty words. The
-// whole warp walks every bit (warp-uniform).
-template <int KC>
-struct HitWalk {
-  const unsigned* bits;
-  int k, words, w0, src;
-  unsigned mine[KC], rb[KC], nz, m;
+constexpr int kLaneCh = 32;   // channels a thread of pass B sums at a time
 
-  __device__ __forceinline__ HitWalk(const unsigned* bits_, int k_, int words_)
-      : bits(bits_), k(k_), words(words_), w0(-32), src(0), nz(0u), m(0u) {}
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
-  __device__ __forceinline__ bool next(int& index, int& round) {
-    while (m == 0u) {
-      if (nz == 0u) {   // the next 32 words
-        w0 += 32;
-        if (w0 >= words) return false;
-        const int w = w0 + (int)(threadIdx.x % 32);
-        unsigned any = 0u;
+// Channels c0 .. c0 + W - 1 (W a multiple of 8) of a row as f32, zero
+// past c. full: 16-byte loads (the row 16-byte aligned, every channel
+// inside c).
+template <int W>
+__device__ __forceinline__ void load_lane(const __nv_bfloat16* __restrict__ row, int c0, int c,
+                                          bool full, float (&v)[W]) {
+  if (full) {
+    const uint4* q = reinterpret_cast<const uint4*>(row + c0);
 #pragma unroll
-        for (int r = 0; r < KC; ++r) {
-          mine[r] = (r < k && w < words) ? bits[r * words + w] : 0u;
-          any |= mine[r];
-        }
-        nz = __ballot_sync(kFull, any != 0u);
-        continue;
-      }
-      src = __ffs(nz) - 1;
-      nz &= nz - 1;
+    for (int u = 0; u < W / 8; ++u) {
+      const uint4 w = q[u];
+      const unsigned h[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-      for (int r = 0; r < KC; ++r) {
-        rb[r] = __shfl_sync(kFull, mine[r], src);
-        m |= rb[r];
+      for (int e = 0; e < 4; ++e) {
+        v[8 * u + 2 * e] = __uint_as_float(h[e] << 16);
+        v[8 * u + 2 * e + 1] = __uint_as_float(h[e] & 0xffff0000u);
       }
     }
-    const unsigned bit = m & (0u - m);
-    m ^= bit;
-    round = 0;   // a score matches at most one round's level
+  } else {
 #pragma unroll
-    for (int q = 1; q < KC; ++q) {
-      if (rb[q] & bit) round = q;
+    for (int e = 0; e < W; ++e) v[e] = c0 + e < c ? to_f(row[c0 + e]) : 0.f;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void load_lane(const float* __restrict__ row, int c0, int c,
+                                          bool full, float (&v)[W]) {
+  if (full) {
+    const float4* q = reinterpret_cast<const float4*>(row + c0);
+#pragma unroll
+    for (int u = 0; u < W / 4; ++u) {
+      const float4 f = q[u];
+      v[4 * u] = f.x;
+      v[4 * u + 1] = f.y;
+      v[4 * u + 2] = f.z;
+      v[4 * u + 3] = f.w;
     }
-    index = (w0 + src) * 32 + __ffs(bit) - 1;
-    return true;
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) v[e] = c0 + e < c ? row[c0 + e] : 0.f;
   }
-};
+}
 
-// f32 sums, in the order rows are pushed, of channels c0 + lane + 32 v
-// (v < V) of rows of T into sum[slot]. Rows are queued Q at a time, so
-// their loads are in flight together, and added oldest first. A group of
-// 32 channels past C is skipped by the whole warp.
-template <typename T, int S, int V, int Q>
-struct Gather {
-  float sum[S][V];
-  const T* row[Q];
-  int slot[Q];
-  int queued, c, c0, lane;
-
-  __device__ __forceinline__ Gather(int c_, int c0_)
-      : queued(0), c(c_), c0(c0_), lane((int)(threadIdx.x % 32)) {
+// v rounded to the row's dtype into channels c0 .. of a row (none past c).
+template <int W>
+__device__ __forceinline__ void store_lane(__nv_bfloat16* __restrict__ row, int c0, int c,
+                                           bool full, const float (&v)[W]) {
+  if (full) {
+    uint4* q = reinterpret_cast<uint4*>(row + c0);
 #pragma unroll
-    for (int s = 0; s < S; ++s)
+    for (int u = 0; u < W / 8; ++u) {
+      unsigned h[4];
 #pragma unroll
-      for (int v = 0; v < V; ++v) sum[s][v] = 0.f;
-#pragma unroll
-    for (int u = 0; u < Q; ++u) { row[u] = nullptr; slot[u] = 0; }
-  }
-
-  __device__ __forceinline__ void push(const T* p, int s) {
-#pragma unroll
-    for (int u = 0; u + 1 < Q; ++u) { row[u] = row[u + 1]; slot[u] = slot[u + 1]; }
-    row[Q - 1] = p;
-    slot[Q - 1] = s;
-    if (++queued == Q) flush();
-  }
-
-  // the queue holds row[Q - queued .. Q - 1], oldest first
-  __device__ __forceinline__ void load(float (&val)[Q][V]) const {
-#pragma unroll
-    for (int u = 0; u < Q; ++u)
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const int ch = c0 + lane + 32 * v;
-        val[u][v] = 0.f;
-        if (c0 + 32 * v < c && u >= Q - queued && ch < c) val[u][v] = to_f(row[u][ch]);
+      for (int e = 0; e < 4; ++e) {
+        h[e] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[8 * u + 2 * e])) |
+               ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[8 * u + 2 * e + 1])) << 16);
       }
-  }
-
-  __device__ __forceinline__ void add(const float (&val)[Q][V]) {
-#pragma unroll
-    for (int u = 0; u < Q; ++u) {
-      if (u < Q - queued) continue;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        if (s != slot[u]) continue;
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          if (c0 + 32 * v < c) sum[s][v] += val[u][v];
-        }
-      }
+      q[u] = make_uint4(h[0], h[1], h[2], h[3]);
     }
-    queued = 0;
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      if (c0 + e < c) row[c0 + e] = __float2bfloat16_rn(v[e]);
+    }
   }
+}
 
-  __device__ __forceinline__ void flush() {
-    float val[Q][V];
-    load(val);
-    add(val);
+template <int W>
+__device__ __forceinline__ void store_lane(float* __restrict__ row, int c0, int c, bool full,
+                                           const float (&v)[W]) {
+  if (full) {
+    float4* q = reinterpret_cast<float4*>(row + c0);
+#pragma unroll
+    for (int u = 0; u < W / 4; ++u)
+      q[u] = make_float4(v[4 * u], v[4 * u + 1], v[4 * u + 2], v[4 * u + 3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      if (c0 + e < c) row[c0 + e] = v[e];
+    }
   }
-};
+}
+
+// Channels c0 .. c0 + W - 1 of a row copied as they are (none past c).
+template <int W, typename T>
+__device__ __forceinline__ void copy_lane(const T* __restrict__ src, T* __restrict__ dst,
+                                          int c0, int c, bool full) {
+  if (full) {
+    const uint4* q = reinterpret_cast<const uint4*>(src + c0);
+    uint4* d = reinterpret_cast<uint4*>(dst + c0);
+#pragma unroll
+    for (int u = 0; u < W * (int)sizeof(T) / 16; ++u) d[u] = q[u];
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      if (c0 + e < c) dst[c0 + e] = src[c0 + e];
+    }
+  }
+}
 
 // Row j of x -> x_j / max(||x_j||, 1e-12), computed in f32 and rounded to
 // T (the matmul dtype). One warp per row; the sum of squares is one fmaf
@@ -557,8 +552,9 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
   int* nact = cnt + kRows * KC;                                     // kRows
   int* key = nact + kRows;                                          // kRows x KC
   int* tied = key + kRows * KC;                                     // kRows
-  unsigned* hits = reinterpret_cast<unsigned*>(tied + kRows);       // kRows x k x words
+  unsigned* hits = reinterpret_cast<unsigned*>(tied + kRows);       // kRows x rw
   const int words = (n + 31) / 32;
+  const int rw = (k * words) | 1;   // odd: the rows' walks read distinct banks
 
   const int tiles = (n + kRows - 1) / kRows;
   const int b = blockIdx.x / tiles;
@@ -572,7 +568,7 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
   constexpr int kWidth = kConcat ? 2 : 1;        // out and g row widths, in C
   const float nan = __int_as_float(0x7fc00000);
 
-  for (int e = tid; e < kRows * k * words; e += kThreads) hits[e] = 0u;
+  for (int e = tid; e < kRows * rw; e += kThreads) hits[e] = 0u;
 
   // 1. levels and counts, from the accumulators. own: this thread's k-th
   //    level; fl: the quad's best, a bound no level of the row's top k is
@@ -696,7 +692,7 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
 #pragma unroll
       for (int r = 0; r < KC; ++r) {
         if (!tie && r < active && ct[h][r] == 1)
-          atomicOr(&hits[(rr * k + r) * words + ix[h][r] / 32], 1u << (ix[h][r] % 32));
+          atomicOr(&hits[rr * rw + r * words + ix[h][r] / 32], 1u << (ix[h][r] % 32));
       }
       if constexpr (kBackward) {
         const int i = i0 + rr;
@@ -741,7 +737,7 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
 #pragma unroll
             for (int r = 0; r < KC; ++r) {
               if (al[h][r] == s)
-                atomicOr(&hits[((row0 + 8 * h) * k + r) * words + j / 32], 1u << (j % 32));
+                atomicOr(&hits[(row0 + 8 * h) * rw + r * words + j / 32], 1u << (j % 32));
             }
           }
       }
@@ -751,87 +747,92 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
 
   // 3. per row: the rounds' sums in key order, their means, the running
   //    max over the active rounds, then the output row (forward) or the
-  //    winners' cotangents (backward). A warp takes two rows at a time, so
-  //    that the loads of both rows' gathers are in flight together.
-  for (int rr0 = warp; rr0 < kRows; rr0 += 2 * kWarps) {
-    for (int c0 = 0; c0 < c; c0 += 32 * kVec) {
-      Gather<T, KC, kVec, 4> sums[2]{{c, c0}, {c, c0}};
-      T own_v[2][kVec];   // x for the concat, g_rel for the backward
+  //    winners' cotangents (backward). Four threads a row, W channels each
+  //    at a time: every thread walks its row's bitmaps itself and keeps its
+  //    own rows' loads in flight.
+  constexpr int W = KC <= kSmallK ? 16 : 8;
+  const int rr = tid / 4, i = i0 + rr;
+  if (i >= n) return;
+  const unsigned* rbits = hits + rr * rw;
+  const int na = nact[rr];
+  int cr[KC];   // the rounds' counts, 0 past the active ones
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int rr = rr0 + p * kWarps, i = i0 + rr;
+  for (int r = 0; r < KC; ++r) cr[r] = r < na ? cnt[rr * KC + r] : 0;
+  const T* own_row = kBackward ? g + ((size_t)b * n + i) * kWidth * c + (kWidth - 1) * c
+                               : xb + (size_t)i * c;
+  const bool vec = c % (16 / (int)sizeof(T)) == 0 && aligned16(x) && aligned16(own_row) &&
+                   aligned16(kBackward ? (const void*)grs : (const void*)out);
+  for (int c0 = (tid % 4) * W; c0 < c; c0 += 4 * W) {
+    const bool full = vec && c0 + W <= c;
+    float sum[KC][W], v[W];
 #pragma unroll
-        for (int v = 0; v < kVec; ++v) {
-          const int ch = c0 + lane + 32 * v;
-          own_v[p][v] = from_f<T>(0.f);
-          if (i >= n || c0 + 32 * v >= c || ch >= c) continue;
-          if (kBackward)
-            own_v[p][v] = g[((size_t)b * n + i) * kWidth * c + (kWidth - 1) * c + ch];
-          else if (kConcat)
-            own_v[p][v] = xb[(size_t)i * c + ch];
-        }
-        if (i >= n) continue;
-        HitWalk<KC> walk(hits + (size_t)rr * k * words, k, words);
-        int j, r;
-        while (walk.next(j, r)) sums[p].push(xb + (size_t)j * c, r);
+    for (int r = 0; r < KC; ++r)
+#pragma unroll
+      for (int e = 0; e < W; ++e) sum[r][e] = 0.f;
+    for (int w = 0; w < words; ++w) {
+      unsigned rb[KC], any = 0u;
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        rb[r] = r < k ? rbits[r * words + w] : 0u;
+        any |= rb[r];
       }
-      float val[2][4][kVec];
-      sums[0].load(val[0]);
-      sums[1].load(val[1]);
-      sums[0].add(val[0]);
-      sums[1].add(val[1]);
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int rr = rr0 + p * kWarps, i = i0 + rr;
-        if (i >= n) continue;
-        const int na = nact[rr];
-        float mean[KC][kVec], rel[kVec];
-#pragma unroll
-        for (int v = 0; v < kVec; ++v) rel[v] = -INFINITY;
+      while (any != 0u) {
+        const unsigned bit = any & (0u - any);
+        any ^= bit;
+        const int j = w * 32 + __ffs(bit) - 1;
+        load_lane<W>(xb + (size_t)j * c, c0, c, full, v);
+        // a score matches at most one round's level
 #pragma unroll
         for (int r = 0; r < KC; ++r) {
-          // an empty round's mean is 0 (the reference divides a zero sum by
-          // a count floored at 1)
-          const int cr = r < na ? cnt[rr * KC + r] : 0;
+          if (rb[r] & bit) {
 #pragma unroll
-          for (int v = 0; v < kVec; ++v) {
-            mean[r][v] = 0.f;
-            if (c0 + 32 * v >= c) continue;
-            if (cr > 0) mean[r][v] = sums[p].sum[r][v] / (float)cr;
-            if (r < na) rel[v] = max_nan(rel[v], mean[r][v]);
+            for (int e = 0; e < W; ++e) sum[r][e] += v[e];
           }
         }
+      }
+    }
+    // the means (in place; an empty round's is 0: the reference divides a
+    // zero sum by a count floored at 1) and their running max
+    float rel[W];
 #pragma unroll
-        for (int v = 0; v < kVec; ++v) {
-          const int ch = c0 + lane + 32 * v;
-          if (ch >= c) continue;
-          if constexpr (!kBackward) {
-            T* oi = out + ((size_t)b * n + i) * kWidth * c;
-            if constexpr (kConcat) {
-              oi[ch] = own_v[p][v];
-              oi[c + ch] = from_f<T>(to_f(from_f<T>(rel[v])) - to_f(own_v[p][v]));
-            } else {
-              oi[ch] = from_f<T>(rel[v]);
-            }
-          } else {
-            // the first active round whose mean equals the running max wins
-            // (a NaN max has no winner, as in the reference's == test)
-            const float gv = to_f(own_v[p][v]);
-            T* gi = grs + ((size_t)b * n + i) * k * c;
-            bool claimed = false;
+    for (int e = 0; e < W; ++e) rel[e] = -INFINITY;
 #pragma unroll
-            for (int r = 0; r < KC; ++r) {
-              if (r >= k) continue;
-              float gr = 0.f;
-              if (r < na && !claimed && mean[r][v] == rel[v]) {
-                claimed = true;
-                const int cr = cnt[rr * KC + r];
-                gr = gv / (float)(cr > 0 ? cr : 1);
-              }
-              gi[(size_t)r * c + ch] = from_f<T>(gr);
-            }
+    for (int r = 0; r < KC; ++r)
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        sum[r][e] = cr[r] > 0 ? sum[r][e] / (float)cr[r] : 0.f;
+        if (r < na) rel[e] = max_nan(rel[e], sum[r][e]);
+      }
+    if constexpr (kBackward || kConcat)
+      load_lane<W>(own_row, c0, c, full, v);   // x for the concat, g_rel for the backward
+    if constexpr (!kBackward) {
+      T* oi = out + ((size_t)b * n + i) * kWidth * c;
+      if constexpr (kConcat) {
+        copy_lane<W>(own_row, oi, c0, c, full);
+#pragma unroll
+        for (int e = 0; e < W; ++e) rel[e] = to_f(from_f<T>(rel[e])) - v[e];
+        store_lane<W>(oi + c, c0, c, full, rel);
+      } else {
+        store_lane<W>(oi, c0, c, full, rel);
+      }
+    } else {
+      // the first active round whose mean equals the running max wins (a
+      // NaN max has no winner, as in the reference's == test)
+      T* gi = grs + ((size_t)b * n + i) * k * c;
+      unsigned claimed = 0u;
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        if (r >= k) continue;
+        float gr[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          gr[e] = 0.f;
+          if (r < na && !(claimed >> e & 1u) && sum[r][e] == rel[e]) {
+            claimed |= 1u << e;
+            gr[e] = v[e] / (float)(cr[r] > 0 ? cr[r] : 1);
           }
         }
+        store_lane<W>(gi + (size_t)r * c, c0, c, full, gr);
       }
     }
   }
@@ -844,8 +845,9 @@ mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
                    const T* __restrict__ grs, const float* __restrict__ levels,
                    T* __restrict__ dx, int n, int c, int k) {
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned* hits = reinterpret_cast<unsigned*>(smem + stage_bytes<T>());  // kKeys x k x words
+  unsigned* hits = reinterpret_cast<unsigned*>(smem + stage_bytes<T>());  // kKeys x kw
   const int words = (n + 31) / 32;
+  const int kw = (k * words) | 1;   // odd: the keys' walks read distinct banks
 
   const int tiles = (n + kKeys - 1) / kKeys;
   const int b = blockIdx.x / tiles;
@@ -855,7 +857,7 @@ mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
   const int row0 = (warp % 4) * 16 + lane / 4;
   const int key0 = (warp / 4) * kWarpKeys + 2 * (lane % 4);
 
-  for (int e = tid; e < kKeys * k * words; e += kThreads) hits[e] = 0u;
+  for (int e = tid; e < kKeys * kw; e += kThreads) hits[e] = 0u;
 
   // the row tiles as the A operand, pass A's tiles and k-order: a score
   // equal to an active level of its row marks the row in the key's bitmap
@@ -880,7 +882,7 @@ mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
             if (j0 + jj >= n || !(s >= lo[h])) continue;
 #pragma unroll
             for (int r = 0; r < KC; ++r) {
-              if (al[h][r] == s) atomicOr(&hits[(jj * k + r) * words + i / 32], 1u << (i % 32));
+              if (al[h][r] == s) atomicOr(&hits[jj * kw + r * words + i / 32], 1u << (i % 32));
             }
           }
       }
@@ -889,52 +891,52 @@ mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
   }
   __syncthreads();
 
-  // per key: G_r(i) of every marking row i, in row order; then the direct
-  // term g_x - g_rel (kConcat) and dx in x's dtype. A warp takes two keys
-  // at a time, so that the loads of both keys' gathers are in flight
-  // together.
-  for (int jj0 = warp; jj0 < kKeys; jj0 += 2 * kWarps) {
-    for (int c0 = 0; c0 < c; c0 += 32 * kVec) {
-      Gather<T, 1, kVec, 4> sums[2]{{c, c0}, {c, c0}};
-      float direct[2][kVec];   // g_x - g_rel, loaded before the walk
+  // per key: G_r(i) of every marking row i, in row order, summed in f32;
+  // then the direct term g_x - g_rel (kConcat) and dx in x's dtype. Two
+  // threads a key, kLaneCh channels each at a time: every thread walks its
+  // key's bitmaps itself and keeps its own rows' loads in flight.
+  const int jj = tid / 2, j = j0 + jj;
+  if (j >= n) return;
+  const unsigned* kb = hits + jj * kw;
+  const T* gb = grs + (size_t)b * n * k * c;
+  const T* gj = g + ((size_t)b * n + j) * (kConcat ? 2 : 1) * c;
+  T* dj = dx + ((size_t)b * n + j) * c;
+  const bool vec = c % (16 / (int)sizeof(T)) == 0 && aligned16(g) && aligned16(grs) &&
+                   aligned16(dx);
+  for (int c0 = (tid % 2) * kLaneCh; c0 < c; c0 += 2 * kLaneCh) {
+    const bool full = vec && c0 + kLaneCh <= c;
+    float sum[kLaneCh], v[kLaneCh];
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int jj = jj0 + p * kWarps, j = j0 + jj;
-        const T* gj = g + ((size_t)b * n + j) * 2 * c;
+    for (int e = 0; e < kLaneCh; ++e) sum[e] = 0.f;
+    for (int w = 0; w < words; ++w) {
+      unsigned rb[KC], any = 0u;
 #pragma unroll
-        for (int v = 0; v < kVec; ++v) {
-          const int ch = c0 + lane + 32 * v;
-          direct[p][v] = 0.f;
-          if (kConcat && j < n && c0 + 32 * v < c && ch < c)
-            direct[p][v] = to_f(gj[ch]) - to_f(gj[c + ch]);
-        }
-        if (j >= n) continue;
-        HitWalk<KC> walk(hits + (size_t)jj * k * words, k, words);
-        int i, r;
-        while (walk.next(i, r)) sums[p].push(grs + (((size_t)b * n + i) * k + r) * c, 0);
+      for (int r = 0; r < KC; ++r) {
+        rb[r] = r < k ? kb[r * words + w] : 0u;
+        any |= rb[r];
       }
-      float val[2][4][kVec];
-      sums[0].load(val[0]);
-      sums[1].load(val[1]);
-      sums[0].add(val[0]);
-      sums[1].add(val[1]);
+      while (any != 0u) {
+        const unsigned bit = any & (0u - any);
+        any ^= bit;
+        int r = 0;   // a score matches at most one round's level
 #pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int j = j0 + jj0 + p * kWarps;
-        if (j >= n) continue;
-        T* dj = dx + ((size_t)b * n + j) * c;
-#pragma unroll
-        for (int v = 0; v < kVec; ++v) {
-          const int ch = c0 + lane + 32 * v;
-          if (ch >= c) continue;
-          if constexpr (kConcat) {
-            dj[ch] = from_f<T>(sums[p].sum[0][v] + direct[p][v]);
-          } else {
-            dj[ch] = from_f<T>(sums[p].sum[0][v]);
-          }
+        for (int q = 1; q < KC; ++q) {
+          if (rb[q] & bit) r = q;
         }
+        const int i = w * 32 + __ffs(bit) - 1;
+        load_lane<kLaneCh>(gb + ((size_t)i * k + r) * c, c0, c, full, v);
+#pragma unroll
+        for (int e = 0; e < kLaneCh; ++e) sum[e] += v[e];
       }
     }
+    if constexpr (kConcat) {
+      float gr[kLaneCh];
+      load_lane<kLaneCh>(gj, c0, c, full, v);
+      load_lane<kLaneCh>(gj + c, c0, c, full, gr);
+#pragma unroll
+      for (int e = 0; e < kLaneCh; ++e) sum[e] += v[e] - gr[e];
+    }
+    store_lane<kLaneCh>(dj, c0, c, full, sum);
   }
 }
 
@@ -970,7 +972,7 @@ cudaError_t launch_rows(const Args<T>& a, cudaStream_t stream) {
   // staging; levels, counts and keys; active rounds and tie flags; hit
   // bitmaps over the keys
   const size_t smem = stage_bytes<T>() + (size_t)kRows * KC * 12 + (size_t)kRows * 8 +
-                      (size_t)kRows * a.k * ((a.n + 31) / 32) * 4;
+                      (size_t)kRows * ((a.k * ((a.n + 31) / 32)) | 1) * 4;
   const long long blocks = (long long)a.b * ((a.n + kRows - 1) / kRows);
   auto kernel = mrconv_rows_kernel<T, KC, kBackward, kConcat>;
   cudaError_t err = prepare(kernel, smem, blocks);
@@ -982,8 +984,8 @@ cudaError_t launch_rows(const Args<T>& a, cudaStream_t stream) {
 
 template <typename T, int KC, bool kConcat>
 cudaError_t launch_keys(const Args<T>& a, cudaStream_t stream) {
-  // staging, hit bitmaps over the rows
-  const size_t smem = stage_bytes<T>() + (size_t)kKeys * a.k * ((a.n + 31) / 32) * 4;
+  // staging, hit bitmaps over the rows (a padded stride per key)
+  const size_t smem = stage_bytes<T>() + (size_t)kKeys * ((a.k * ((a.n + 31) / 32)) | 1) * 4;
   const long long blocks = (long long)a.b * ((a.n + kKeys - 1) / kKeys);
   auto kernel = mrconv_keys_kernel<T, KC, kConcat>;
   cudaError_t err = prepare(kernel, smem, blocks);

@@ -14,14 +14,17 @@ of the package in a temporary directory with phases cut out of the source
   * ``scores-only``: also without pass 1's fold into the level lists, so
     no row has a level, no tie and no hit: what is left is the score pass
     (and the normalisation launch);
-  * ``no-gather``: the key kernel (pass B) without its walk and sums.
+  * ``no-gather``: the key kernel (pass B) without its walk and sums;
+  * ``walk-only``: both kernels walk their hit bitmaps and add, but load
+    no row (of x in the row kernel, of G in pass B).
 
 Each variant runs in its own process and times, with CUDA events, the
 ``mrconv_concat`` forward at B = 128 (bf16 and f32) and the backward at
 B = 512 (bf16) at the size-t stage shapes. Then, per shape: scores =
 scores-only; selection = no-extraction - scores-only; extraction = full -
 no-extraction (forward and pass A); pass B's gather = full - no-gather
-(backward). Prints the card's name and power limit beside every line.
+(backward); the gathers' row loads = full - walk-only. Prints the card's
+name and power limit beside every line.
 """
 
 from __future__ import annotations
@@ -41,15 +44,20 @@ K = 3
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the lines each variant cuts (every one must be in the source)
-_EXTRACT = "  for (int rr0 = warp; rr0 < kRows; rr0 += 2 * kWarps) {"
+_EXTRACT = "  if (i >= n) return;\n  const unsigned* rbits"
 _FOLD = "      while (m > -INFINITY && m >= fl[h] && m >= own[h]) {"
-_GATHER = "  for (int jj0 = warp; jj0 < kKeys; jj0 += 2 * kWarps) {"
+_GATHER = "  if (j >= n) return;\n  const unsigned* kb"
+_LOAD_X = "        load_lane<W>(xb + (size_t)j * c, c0, c, full, v);"
+_LOAD_G = "        load_lane<kLaneCh>(gb + ((size_t)i * k + r) * c, c0, c, full, v);"
+_NO_EXTRACT = (_EXTRACT, _EXTRACT.replace("i >= n", "i >= n || rr >= 0"))
 VARIANTS = {
     "full": (),
-    "no-extraction": ((_EXTRACT, _EXTRACT.replace("rr0 < kRows", "rr0 < 0")),),
-    "scores-only": ((_EXTRACT, _EXTRACT.replace("rr0 < kRows", "rr0 < 0")),
-                    (_FOLD, "      while (false) {")),
-    "no-gather": ((_GATHER, _GATHER.replace("jj0 < kKeys", "jj0 < 0")),),
+    "no-extraction": (_NO_EXTRACT,),
+    "scores-only": (_NO_EXTRACT, (_FOLD, "      while (false) {")),
+    "no-gather": ((_GATHER, _GATHER.replace("j >= n", "j >= n || jj >= 0")),),
+    # the walks still add what they would have loaded, so they stay
+    "walk-only": ((_LOAD_X, "        for (int e = 0; e < W; ++e) v[e] = (float)j;"),
+                  (_LOAD_G, "        for (int e = 0; e < kLaneCh; ++e) v[e] = (float)i;")),
 }
 
 
@@ -125,14 +133,17 @@ def main() -> int:
             ms[name] = json.loads(proc.stdout.strip().splitlines()[-1])
     print(f"card: {card}")
     for key, full in ms["full"].items():
+        loads = full - ms["walk-only"][key]
         if key.startswith("forward"):
             scores = ms["scores-only"][key]
             parts = (f"scores {scores:.4f}, selection "
                      f"{ms['no-extraction'][key] - scores:.4f}, extraction "
-                     f"{full - ms['no-extraction'][key]:.4f}")
+                     f"{full - ms['no-extraction'][key]:.4f} (its row loads "
+                     f"{loads:.4f})")
         else:
             parts = (f"pass A's extraction {full - ms['no-extraction'][key]:.4f}, "
-                     f"pass B's gather {full - ms['no-gather'][key]:.4f}")
+                     f"pass B's gather {full - ms['no-gather'][key]:.4f}, "
+                     f"the row loads of both {loads:.4f}")
         print(f"phases {key}: full {full:.4f} ms: {parts} ms [{card}]")
     return 0
 
