@@ -36,9 +36,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      backward at every stage shape, 2B = 512, bf16, with launch counts,
      against the plain versions;
   7. times with CUDA events after warm-up: per kernel shape (kernel,
-     plain version, bound), the bf16 serving forward as fingerprints/s,
-     unfused and fused, and the bf16 train step as ms, samples/s and peak
-     memory.
+     plain version, bound; for the fused block also its three products as
+     cuBLAS computes them, the yardstick), the bf16 serving forward as
+     fingerprints/s, unfused and fused, and the bf16 train step as ms,
+     samples/s and peak memory.
 
 The line before the last is the card (nvidia-smi), the one before it the
 kernels' JSON; the last line is {"ok": true, "device": {...}}.
@@ -146,6 +147,23 @@ def block_bound_ms(b: int, n: int, c: int, dtype: torch.dtype):
     t_ops = (2 * b * n * c * (7 * c + n) / PEAK_OPS_S[dtype]
              + 2 * K * b * n * n / F32_OPS_S)
     return 1e3 * t_bytes, 1e3 * t_ops
+
+
+def cublas_products_ms(m: int, c: int, dtype: torch.dtype, g: torch.Generator) -> float:
+    """The fused block's three products (fc1 (M, C) x (C, C), the grouped
+    conv (M, 2C) x (2C, 2C), fc2 (M, 2C) x (2C, C)) as cuBLAS computes them,
+    the yardstick of #5's product kernels: bf16 with f32 outputs as
+    models/layers.py:dense_matmul_bf16grad calls it, f32 in full f32
+    (matmul TF32 off, PyTorch's default). Timing only: the op never calls
+    it, and no single call computes the block, so library_ms stays null."""
+    a1 = torch.randn(m, c, generator=g, device="cuda").to(dtype)
+    a2 = torch.randn(m, 2 * c, generator=g, device="cuda").to(dtype)
+    w1, wg, w2 = (torch.randn(k, o, generator=g, device="cuda").to(dtype)
+                  for k, o in ((c, c), (2 * c, 2 * c), (2 * c, c)))
+    kw = {"out_dtype": torch.float32} if dtype == torch.bfloat16 else {}
+    check(not torch.backends.cuda.matmul.allow_tf32, "f32 matmuls run in TF32")
+    return time_ms(lambda: (torch.mm(a1, w1, **kw), torch.mm(a2, wg, **kw),
+                            torch.mm(a2, w2, **kw)), reps=20)
 
 
 def kernel_inputs(n: int, c: int, dtype: torch.dtype, g: torch.Generator, b: int = B):
@@ -444,7 +462,7 @@ def main() -> int:
                                         "grapher_block"]).items():
         print(f"build {name}: {secs:.1f} s")
         for line in log.splitlines():
-            if "spill" in line and " 0 bytes spill" not in line:
+            if ("spill" in line and " 0 bytes spill" not in line) or "Performance Loss" in line:
                 print(f"  ptxas: {line.strip()}")
 
     # 3. kernels vs plain versions at the main paths' widths
@@ -717,12 +735,20 @@ def main() -> int:
             t_p = time_ms(lambda: mrconv_concat_reference(x, K), reps=5)
             record("mrconv_concat", nb, dtype, B, n, c, t_k, t_p,
                    bound_ms(B, n, c, dtype, False), add=dtype == torch.bfloat16)
+            t_blas = cublas_products_ms(B * n, c, dtype, g)
             if grapher_block_supported(n, c, dtype, K):
                 ws = stage_weights(c, dtype, seed=10 + c)
                 t_k = time_ms(lambda: grapher_block(x, K, *ws), reps=10)
                 t_p = time_ms(lambda: grapher_block_reference(x, K, *ws), reps=3)
                 record("grapher_block", nb, dtype, B, n, c, t_k, t_p,
                        block_bound_ms(B, n, c, dtype), add=dtype == torch.bfloat16)
+                per_shape["grapher_block"][-1]["cublas_products_ms"] = t_blas
+                beside = f"grapher_block {t_k:.4f} ms (the whole block)"
+            else:
+                beside = "grapher_block refused by the guard"
+            print(f"time products cuBLAS {str(dtype)[6:]} B={B} N={n} C={c}: fc1, grouped "
+                  f"conv and fc2 as three torch.mm {t_blas:.4f} ms; {beside} [{card}]",
+                  flush=True)
         # the train path's shapes: 2B = 512, bf16
         bt, dtype = 2 * bsz, torch.bfloat16
         x = torch.randn(bt, n, c, generator=g, device="cuda").to(dtype)

@@ -122,7 +122,12 @@ def grapher_block(x: torch.Tensor, k: int, w1, c1, wg, cg, w2, c2) -> torch.Tens
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    # scratch the kernel writes: x1 and its keys, the concat, g
+    # Scratch for the arrays that make a round trip through device memory
+    # between the kernel's five launches (csrc/grapher_block.cu): x1 and its
+    # keys (B, N, C), the concat and g (B, N, 2C). In bf16 the product
+    # launches are bound by these bytes (the grouped conv at C = 512 by
+    # operations); they stay because the selection needs all of an item's
+    # x1 before it starts.
     x1, xn = torch.empty_like(x), torch.empty_like(x)
     cat = torch.empty((b, n, 2 * c), dtype=x.dtype, device=x.device)
     gbuf = torch.empty_like(cat)

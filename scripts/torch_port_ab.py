@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of the port's MRConv kernels (#3 forward, #4 backward) and serving
-forward between two checkouts, on one card, in one call.
+"""A/B of the port's MRConv kernels (#3 forward, #4 backward), the fused
+Grapher block (#5) and the serving forward between two checkouts, on one
+card, in one call.
 
     python3 scripts/torch_port_ab.py OTHER_CHECKOUT
 
@@ -10,17 +11,24 @@ runs in its own process, importing its own ``grafp_tpu_torch`` (and
 building its own kernels), in the order other, this, this, other. Every
 side gets the same seeded inputs at the size-t stage shapes:
 ``mrconv_concat`` at B = 128 (f32 and bf16) and B = 512 (bf16),
-``mrconv_concat_backward`` at B = 128 (f32) and B = 512 (bf16), and the
-bf16 wave -> fingerprint forward at B = 128. The first run of each side
-saves its kernel outputs; the script then checks that
+``mrconv_concat_backward`` at B = 128 (f32) and B = 512 (bf16),
+``grapher_block`` at B = 128 (f32 and bf16, the stage shapes its guard
+admits, seeded random folded weights), and the bf16 wave -> fingerprint
+forward at B = 128. The first run of each side saves its kernel outputs;
+the script then checks that
 
-  * f32 outputs are bit-identical across the two trees (hash-equal), and
-  * bf16 rows that differ between the trees lie inside the near-tie band
-    of chip_smoke.py (NEAR_TIE_EPS: rows whose plain top-(k+1) scores have
-    a gap in (0, 1e-3); for dx, those rows' top-(k+1) rows),
+  * f32 outputs are bit-identical across the two trees (hash-equal),
+  * bf16 rows of #3 and #4 that differ between the trees lie inside the
+    near-tie band of chip_smoke.py (NEAR_TIE_EPS: rows whose plain
+    top-(k+1) scores have a gap in (0, 1e-3); for dx, those rows'
+    top-(k+1) rows), and
+  * each tree's bf16 #5 rows outside chip_smoke.py's block tolerance
+    against the plain version lie inside the near-tie band of the plain
+    x1's scores (the rows that differ between the trees are counted),
 
-and prints per-stage times of every run with the card's name and power
-limit. It exits 1 when a check fails.
+and prints per-stage times of every run (for #5 also the time of its
+product kernels, from the profiler) with the card's name and power limit.
+It exits 1 when a check fails.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ B, BT, K = 128, 512, 3
 # (op, dtype, batch): what each side runs at every stage shape
 CASES = (("forward", "bfloat16", B), ("forward", "float32", B),
          ("forward", "bfloat16", BT), ("backward", "float32", B),
-         ("backward", "bfloat16", BT))
+         ("backward", "bfloat16", BT), ("block", "float32", B),
+         ("block", "bfloat16", B))
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -70,10 +79,47 @@ def case_inputs(idx: int, op: str, dtype: str, b: int, n: int, c: int):
     return x, gy
 
 
+def block_weights(idx: int, c: int, dtype: str):
+    """Seeded folded weights (w1, c1, wg, cg, w2, c2) of case ``idx``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(2000 + idx)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=g)
+
+    return (rnd(c, c, scale=c ** -0.5).to(dt), rnd(1, c, scale=0.1),
+            rnd(2 * c, 2 * c, scale=(2 * c) ** -0.5).to(dt), rnd(1, 2 * c, scale=0.1),
+            rnd(2 * c, c, scale=(2 * c) ** -0.5).to(dt), rnd(1, c, scale=0.1))
+
+
 def cases():
+    import torch
+
+    from grafp_tpu_torch.ops.grapher_block import grapher_block_supported
+
     for op, dtype, b in CASES:
         for n, c in STAGES:
+            if op == "block" and not grapher_block_supported(n, c, getattr(torch, dtype), K):
+                continue
             yield f"{op} {dtype} B={b} N={n} C={c}", (op, dtype, b, n, c)
+
+
+def products_ms(run, iters: int = 5) -> float:
+    """Device time per call of the kernels named grapher_gemm* (the fused
+    block's products) under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if "grapher_gemm" in e.key) / 1e3 / iters
 
 
 def worker(root: str, save: str | None) -> dict:
@@ -84,15 +130,20 @@ def worker(root: str, save: str | None) -> dict:
     from grafp_tpu_torch.core import Config
     from grafp_tpu_torch.fp import FingerprintPipeline
     from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.ops.grapher_block import grapher_block
     from grafp_tpu_torch.ops.mrconv_concat import mrconv_concat, mrconv_concat_backward
 
-    out = {"ms": {}, "hash": {}}
+    out = {"ms": {}, "hash": {}, "products_ms": {}}
     for idx, (key, (op, dtype, b, n, c)) in enumerate(cases()):
         x, gy = case_inputs(idx, op, dtype, b, n, c)
         if op == "forward":
             run = lambda: mrconv_concat(x, K)  # noqa: E731
-        else:
+        elif op == "backward":
             run = lambda: mrconv_concat_backward(x, gy, K)  # noqa: E731
+        else:
+            ws = block_weights(idx, c, dtype)
+            run = lambda: grapher_block(x, K, *ws)  # noqa: E731
+            out["products_ms"][key] = products_ms(run)
         y = run()
         out["hash"][key] = hashlib.sha256(
             y.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
@@ -115,7 +166,9 @@ def compare(here: str, this_dir: str, other_dir: str) -> bool:
     import torch
 
     sys.path.insert(0, here)
-    from chip_smoke import backward_band, concat_keys, forward_band
+    from chip_smoke import backward_band, block_within, concat_keys, forward_band
+
+    from grafp_tpu_torch.ops.grapher_block import _mm, grapher_block_reference
 
     ok = True
     for idx, (key, (op, dtype, b, n, c)) in enumerate(cases()):
@@ -130,6 +183,23 @@ def compare(here: str, this_dir: str, other_dir: str) -> bool:
             ok &= same
             continue
         x, _ = case_inputs(idx, op, dtype, b, n, c)
+        if op == "block":
+            ws = block_weights(idx, c, dtype)
+            want = grapher_block_reference(x, K, *ws)
+            x1 = (_mm(x.reshape(b * n, c), ws[0]) + ws[1]).to(x.dtype).reshape(b, n, c)
+            band = forward_band(concat_keys(x1))
+            cols = []
+            for name, y in (("this", a), ("other", o)):
+                bad = ~block_within(y, want).all(-1)
+                outside = int((bad & ~band).sum())
+                cols.append(f"{name} tree vs plain: {int(bad.sum())} rows outside the "
+                            f"tolerance, {outside} of them outside the near-tie band")
+                ok &= outside == 0
+            print(f"check {key}: bf16 rows differing between the trees "
+                  f"{int(rows.sum())}/{rows.numel()}; " + "; ".join(cols))
+            del a, o, x, want, x1, band
+            torch.cuda.empty_cache()
+            continue
         keys = concat_keys(x)
         band = forward_band(keys) if op == "forward" else backward_band(keys)
         outside = int((rows & ~band).sum())
@@ -180,6 +250,9 @@ def main() -> int:
     for key in runs[0][1]["ms"]:
         cols = ", ".join(f"{n} {r['ms'][key]:.4f}" for n, r in runs)
         print(f"time {key}: {cols} ms [{card}]")
+        if key in runs[0][1].get("products_ms", {}):
+            cols = ", ".join(f"{n} {r['products_ms'][key]:.4f}" for n, r in runs)
+            print(f"time {key} products (grapher_gemm* kernels): {cols} ms [{card}]")
     cols = ", ".join(f"{n} {r['forward_ms']:.3f} ({B / r['forward_ms'] * 1e3:.1f} fp/s)"
                      for n, r in runs)
     print(f"serving forward bf16 B={B}: {cols} ms [{card}]")

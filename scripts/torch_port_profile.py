@@ -33,11 +33,13 @@ import torch
 
 def _kind(key: str):
     """'forward', 'backward' or 'products' for the port's selection and
-    product kernels (csrc/mrconv_select.cuh, csrc/grapher_block.cu), by
+    product kernels (csrc/mrconv_select.cuh, csrc/grapher_gemm.cuh), by
     demangled or mangled name; None for any other kernel.
 
     mrconv_rows_kernel<T, KC, kBackward, kConcat> is the forward, or pass A
-    of the backward; mrconv_keys_kernel<T, KC, kConcat> is pass B."""
+    of the backward; mrconv_keys_kernel<T, KC, kConcat> is pass B; the
+    fused block's products are grapher_gemm_wgmma_kernel<kEpi> (bf16) and
+    grapher_gemm_f32_kernel<kEpi> (f32)."""
     if "grapher_gemm" in key:
         return "products"
     if "mrconv_keys_kernel" in key:

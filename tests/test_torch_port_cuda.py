@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 from grafp_tpu_torch.models.gnn import Grapher  # noqa: E402
 from grafp_tpu_torch.models.layers import init_parameters  # noqa: E402
 from grafp_tpu_torch.ops.grapher_block import (  # noqa: E402
+    _mm,
     grapher_block,
     grapher_block_reference,
 )
@@ -311,6 +312,63 @@ def test_grapher_block_kernel_matches_plain_version(card, dtype):
     else:
         scale = want.abs().amax(-1, keepdim=True)
         assert bool(((got - want).abs() <= 3 * _bf16_ulp(scale)).all())
+
+
+# The product kernels' edges: (B, N, C, on a side stream). bf16 tiles are
+# 128 rows x up to 256 columns in chunks of 64, K in steps of 64; TMA needs
+# rows of a multiple of 16 bytes, so C = 20 takes the cp.async path for fc1
+# and fc2. f32 tiles are 128 x 128, K in steps of 16.
+_PRODUCT_EDGES = {
+    "C16": (2, 128, 16, False),
+    "C24": (2, 128, 24, False),
+    "C40": (2, 128, 40, False),
+    "C80": (2, 128, 80, False),
+    "C20-rows-not-16-bytes": (2, 96, 20, False),
+    "N256-C400": (2, 256, 400, False),             # size s's ragged stage 3
+    "B1-N100": (1, 100, 40, False),                # B N not a multiple of the row tile
+    "B128-N128-C512": (128, 128, 512, False),      # many tiles
+    "side-stream": (2, 128, 64, True),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(_PRODUCT_EDGES))
+def test_grapher_block_product_edges(card, case, dtype):
+    """The fused block at the edges of its product kernels' tiles against
+    the plain version, at test_grapher_block_kernel_matches_plain_version's
+    tolerances (1e-4 + 1e-4 |ref| in f32, 3 bf16 ulps of each row's largest
+    output in bf16), two launches bit-equal. Rows with a near tie in the
+    plain x1's top-(k+1) scores (chip_smoke.py's band) may select
+    differently, at most 1 % of the rows or one. The side-stream case
+    launches on a non-default stream and must equal the launch on the
+    default one bit for bit."""
+    dt = getattr(torch, dtype)
+    b, n, c, side = _PRODUCT_EDGES[case]
+    ws = _folded(card, dt, c).folded_weights(dt)
+    x = torch.randn(b, n, c, generator=torch.Generator().manual_seed(4)).to(card, dt)
+    before = grapher_block.launches
+    if side:
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            got, again = grapher_block(x, 3, *ws), grapher_block(x, 3, *ws)
+        torch.cuda.current_stream().wait_stream(stream)
+        assert torch.equal(got, grapher_block(x, 3, *ws))
+    else:
+        got, again = grapher_block(x, 3, *ws), grapher_block(x, 3, *ws)
+    want = grapher_block_reference(x, 3, *ws).float()
+    torch.cuda.synchronize()
+    assert grapher_block.launches - before == (3 if side else 2)
+    assert got.dtype == dt and torch.equal(got, again)
+    got = got.float()
+    if dt == torch.float32:
+        ok = (got - want).abs() <= 1e-4 + 1e-4 * want.abs()
+    else:
+        ok = (got - want).abs() <= 3 * _bf16_ulp(want.abs().amax(-1, keepdim=True))
+    bad = ~ok.all(-1)
+    x1 = (_mm(x.reshape(b * n, c), ws[0]) + ws[1]).to(dt).reshape(b, n, c)
+    assert not bool((bad & ~_near_tie_rows(x1, 3, False)).any())
+    assert int(bad.sum()) <= max(1, 0.01 * bad.numel())
 
 
 def test_fused_grapher_launches_the_kernel(card):
