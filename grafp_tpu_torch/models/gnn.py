@@ -8,10 +8,10 @@ max_k(x_nbr) - x] and a backward kernel for its gradient); the grouped
 MRConv conv absorbs the reference's channel interleave in its weights.
 In train mode every BatchNorm uses the batch's statistics.
 
-With ``fuse_serving='on'`` an eval-mode Grapher whose shape the guard
-admits runs as one fused op instead (``ops.grapher_block``: fc1, kNN
-MRConv, grouped conv, fc2, the three BatchNorms folded in, and the
-residual); 'auto' means off, as in the JAX package.
+With ``fuse_serving='on'``, or 'auto' on a CUDA tensor, an eval-mode
+Grapher whose shape the guard admits runs as one fused op instead
+(``ops.grapher_block``: fc1, kNN MRConv, grouped conv, fc2, the three
+BatchNorms folded in, and the residual).
 
 Reference quirk kept: the reference never increments its block counter,
 so every block runs dilation 1 and drop_path 0 (graph_encoder.py:139-151,
@@ -50,6 +50,16 @@ SIZE_PRESETS = {
 }
 
 _LATER = "the port's later graph-conv slice"
+# the fused op's weights, in GrapherBlock's argument order
+_FUSED = ("w1", "c1", "wg", "cg", "w2", "c2")
+
+
+def _affine(bn: nn.Module, like: torch.Tensor):
+    """A BatchNorm's eval map as (s, t); for one that ``models/fold_bn.py``
+    has folded away, the identity over ``like``'s channels."""
+    if isinstance(bn, BatchNorm):
+        return bn.affine()
+    return torch.ones_like(like), torch.zeros_like(like)
 
 
 class MRConv(nn.Module):
@@ -74,10 +84,18 @@ class Grapher(nn.Module):
 
     ``fuse_serving``: 'on' runs an eval-mode block with relu whose shape
     ``grapher_block_supported`` admits as one fused op on BatchNorm-folded
-    weights, folded from the live parameters on every call; 'auto' and
-    'off' never fuse ('auto' resolves to off, as in the JAX package).
-    Training never fuses. Both paths share the same submodules and
-    state_dict keys."""
+    weights, folded from the live parameters on every call; 'auto' does so
+    on a CUDA tensor and never on the CPU; 'off' never fuses. Training
+    never fuses. Both paths share the same submodules and state_dict keys.
+
+    Why 'auto' fuses on the card: on an H100 80GB HBM3 at 700 W the
+    BatchNorm-folded bf16 forward from log-mel took 7.2-8.0 ms fused
+    against 9.0-10.6 ms unfused at B = 128, and 13.6 against 17.5 ms at
+    B = 256, each fingerprint nearest its own row of the unfolded f32
+    plain path, at cosine >= 0.9988 (``chip_smoke.py``). The JAX package
+    resolves 'auto' to off because its fused block lost on a TPU v5e
+    (``grafp_tpu/models/gnn.py``). On the CPU 'auto' keeps the unfused
+    path, which the parity tests hold against the JAX package."""
 
     def __init__(self, features: int, k: int = 3, dilation: int = 1,
                  conv: str = "mr", act: str = "relu",
@@ -92,7 +110,7 @@ class Grapher(nn.Module):
         c = features
         self.k = k
         self.dtype = dtype
-        self.fuse = fuse_serving == "on" and act == "relu"
+        self.fuse_serving = fuse_serving if act == "relu" else "off"
         self.fc1 = PointwiseConv(c, c, dtype=dtype)
         self.fc1_bn = BatchNorm(c, dtype=dtype)
         self.gconv = MRConv(2 * c, 2 * c, act=act, dtype=dtype)
@@ -104,9 +122,9 @@ class Grapher(nn.Module):
         into the linear before it, weights (in, out) in ``dt``, biases
         (1, out) in f32 (``grafp_tpu/models/gnn.py:241-254``)."""
         c = self.fc1.weight.shape[0]
-        s1, t1 = self.fc1_bn.affine()
-        sg, tg = self.gconv.bn.affine()
-        s2, t2 = self.fc2_bn.affine()
+        s1, t1 = _affine(self.fc1_bn, self.fc1.bias)
+        sg, tg = _affine(self.gconv.bn, self.gconv.conv.bias)
+        s2, t2 = _affine(self.fc2_bn, self.fc2.bias)
         wgd = grouped_as_concat_dense(self.gconv.conv.weight, 2 * c, 2 * c)
         return ((self.fc1.weight * s1[:, None]).t().to(dt).contiguous(),
                 (self.fc1.bias * s1 + t1)[None],
@@ -115,12 +133,30 @@ class Grapher(nn.Module):
                 (self.fc2.weight * s2[:, None]).t().to(dt).contiguous(),
                 (self.fc2.bias * s2 + t2)[None])
 
+    def freeze(self) -> None:
+        """Keep the fused op's weights, folded in the compute dtype, as
+        buffers (moved by ``.to``, not saved), so that a serving copy whose
+        parameters no longer change rebuilds nothing per call
+        (``models/fold_bn.py``)."""
+        with torch.no_grad():
+            for name, w in zip(_FUSED, self.folded_weights(self.dtype or torch.float32)):
+                self.register_buffer(f"frozen_{name}", w.detach().clone(),
+                                     persistent=False)
+
+    def fuses(self, x: torch.Tensor) -> bool:
+        """Whether this call runs the fused op (``fuse_serving`` resolved
+        on x's device)."""
+        return (self.fuse_serving == "on"
+                or (self.fuse_serving == "auto" and x.is_cuda))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
-        if (self.fuse and not self.training
+        if (self.fuses(x) and not self.training
                 and grapher_block_supported(x.shape[1], x.shape[2], dt, self.k)):
-            return GrapherBlock.apply(x.to(dt).contiguous(), self.k,
-                                      *self.folded_weights(dt))
+            frozen = [self._buffers.get(f"frozen_{n}") for n in _FUSED]
+            if frozen[0] is None or frozen[0].dtype != dt:
+                frozen = self.folded_weights(dt)
+            return GrapherBlock.apply(x.to(dt).contiguous(), self.k, *frozen)
         shortcut = x
         x = self.fc1_bn(self.fc1(x))
         x = self.gconv(MRConvConcat.apply(x.contiguous(), self.k))

@@ -172,8 +172,19 @@ class GroupedPointwiseConv(nn.Module):
         return cast(grouped_as_concat_dense(
             self.weight, self.in_features, self.out_features), self.dtype)
 
+    def freeze(self) -> None:
+        """Keep the dense weight as a buffer (moved by ``.to``, not saved)
+        for a serving copy whose parameters no longer change
+        (``models/fold_bn.py``)."""
+        with torch.no_grad():
+            self.register_buffer("frozen_dense", self.dense_weight().detach().clone(),
+                                 persistent=False)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense_matmul_bf16grad(cast(x, self.dtype), self.dense_weight()) + self.bias
+        w = self._buffers.get("frozen_dense")
+        if w is None:
+            w = self.dense_weight()
+        return dense_matmul_bf16grad(cast(x, self.dtype), w) + self.bias
 
 
 class BatchNorm(nn.Module):

@@ -15,6 +15,7 @@ from grafp_tpu_torch.models.gnn import GraphEncoder
 from grafp_tpu_torch.models.layers import PointwiseConv, init_parameters
 from grafp_tpu_torch.models.peak_embed import PeakEmbed
 from grafp_tpu_torch.ops.knn import l2_normalize
+from grafp_tpu_torch.ops.mrconv_concat import MAX_K, MAX_KN
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,15 +53,36 @@ class SimCLRModel(nn.Module):
         return h, z
 
 
+def _check_kernel_shapes(cfg) -> None:
+    """Refuse a Config whose first Grapher the CUDA selection cannot run:
+    k above MAX_K, or k * N above MAX_KN for the stage-1 node count N (the
+    JAX kernels need only N >= k, ``pallas_knn.py:184,381,594``)."""
+    k = int(cfg["k"])
+    kh = int(cfg["blur_kernel"][0])
+    rows = (int(cfg["n_mels"]) + 2 * (kh // 2) - kh) // int(cfg["peak_stride"]) + 1
+    n = rows * int(cfg["n_frames"])
+    if k > MAX_K or k * n > MAX_KN:
+        raise NotImplementedError(
+            f"k={k} with N={n} nodes: the CUDA kernels take k <= {MAX_K} and "
+            f"k * N <= {MAX_KN} (k * N = {k * n}); lifting the limit is a later "
+            "change of the selection (csrc/mrconv_select.cuh); the CPU path "
+            "has no limit")
+
+
 def build_model(cfg, generator: Optional[torch.Generator] = None,
                 device: Optional[Union[str, torch.device]] = None,
-                train: bool = False) -> SimCLRModel:
+                train: bool = False, fuse_serving: str = "auto") -> SimCLRModel:
     """The flagship model from a Config, initialised from ``generator``
     (seed 0 when None) with the reference's torch initialisers, on
     ``device`` (None = the CUDA card), in eval mode, or in train mode
     (BatchNorm on batch statistics) when ``train``. Parameters are f32
-    in both; ``compute_dtype`` sets the dtype they are cast to at use."""
+    in both; ``compute_dtype`` sets the dtype they are cast to at use.
+    ``fuse_serving`` goes to every Grapher ('auto': the fused block on the
+    card, the unfused path on the CPU). On a CUDA device a Config whose
+    k or node count the kernels do not take is refused here."""
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        _check_kernel_shapes(cfg)
     if cfg["arch"] != "grafp":
         raise NotImplementedError(
             f"arch {cfg['arch']!r}: the port has arch='grafp' only")
@@ -83,7 +105,8 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
     encoder = GraphEncoder(
         in_features=cfg["n_filters"], size=cfg["size"], k=int(cfg["k"]),
         emb_dims=cfg["h"], dilation_schedule=cfg["dilation_schedule"],
-        drop_path_schedule=cfg["drop_path_schedule"], dtype=dtype)
+        drop_path_schedule=cfg["drop_path_schedule"], dtype=dtype,
+        fuse_serving=fuse_serving)
     model = SimCLRModel(encoder, n_filters=cfg["n_filters"],
                         blur_kernel=tuple(cfg["blur_kernel"]),
                         peak_stride=cfg["peak_stride"], h=cfg["h"],

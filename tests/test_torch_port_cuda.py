@@ -6,6 +6,7 @@ import torch and the port only, so they also run where JAX is absent:
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests.)
 Without a card every test here skips."""
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -283,12 +284,16 @@ def test_max_neighbors_autograd_launches_both_kernels(card):
 # --- grapher_block (kernel #5) ---------------------------------------------
 
 def _folded(card, dt, c, seed=2):
+    """An eval-mode Grapher of width c whose weights and BatchNorm
+    statistics all come from ``seed`` (not from the global generator, so
+    the block is the same whichever tests ran before)."""
     g = Grapher(c, k=3, fuse_serving="on", dtype=dt)
-    init_parameters(g, torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    init_parameters(g, gen)
     with torch.no_grad():
         for bn in (g.fc1_bn, g.gconv.bn, g.fc2_bn):
-            bn.running_mean.normal_(0.0, 0.3)
-            bn.running_var.uniform_(0.5, 2.0)
+            bn.running_mean.normal_(0.0, 0.3, generator=gen)
+            bn.running_var.uniform_(0.5, 2.0, generator=gen)
     return g.to(card).eval()
 
 
@@ -312,6 +317,18 @@ def test_grapher_block_kernel_matches_plain_version(card, dtype):
     else:
         scale = want.abs().amax(-1, keepdim=True)
         assert bool(((got - want).abs() <= 3 * _bf16_ulp(scale)).all())
+
+
+def test_grapher_block_f32_holds_over_weight_draws(card):
+    """The f32 block on the ragged tie-heavy input above against its plain
+    version, at the same tolerance, over 50 seeded weight and BatchNorm
+    draws: a draw whose k-NN selection the kernel flipped would fail."""
+    x = _inputs(card, torch.float32, b=3, n=100, c=40)
+    for seed in range(100, 150):
+        ws = _folded(card, torch.float32, 40, seed=seed).folded_weights(torch.float32)
+        got = grapher_block(x, 3, *ws)
+        want = grapher_block_reference(x, 3, *ws)
+        assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()), seed
 
 
 # The product kernels' edges: (B, N, C, on a side stream). bf16 tiles are
@@ -397,3 +414,90 @@ def test_grapher_block_wrapper_rejects_what_the_kernel_does_not_take(card, fault
     with pytest.raises(ValueError):
         grapher_block(x, 3, *ws)
     assert grapher_block.launches == before
+
+
+# --- the evaluation path: 'auto' fusing, the C1 refusal, search and rescoring
+
+def test_fuse_serving_auto_resolves_on_the_tensors_device(card):
+    g = Grapher(16, fuse_serving="auto")
+    assert g.fuses(torch.zeros(1, 8, 16, device=card))
+    assert not g.fuses(torch.zeros(1, 8, 16))
+    model = _folded(card, torch.bfloat16, 64)
+    model.fuse_serving = "auto"
+    x = torch.randn(2, 128, 64, device=card, dtype=torch.bfloat16)
+    before = grapher_block.launches
+    with torch.no_grad():
+        model(x)
+    torch.cuda.synchronize()
+    assert grapher_block.launches == before + 1
+
+
+def test_build_model_refuses_what_the_kernels_do_not_take_on_the_card(card):
+    from grafp_tpu_torch.core import Config
+    from grafp_tpu_torch.models import build_model
+
+    with pytest.raises(NotImplementedError, match="k <= 8 and k \\* N <= 8192"):
+        build_model(Config(k=9), device=card)
+    assert build_model(Config(k=9), device="cpu") is not None
+
+
+def _db_with_ties(rows=5000, d=128, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    db = torch.nn.functional.normalize(torch.randn(rows, d, generator=g), dim=1)
+    db[100:120] = db[50]                        # twenty exact copies of row 50
+    q = torch.nn.functional.normalize(torch.randn(64, d, generator=g), dim=1)
+    q[0] = db[50]
+    return db, q
+
+
+@pytest.mark.parametrize("kind", ["l2", "ivfpq"])
+def test_search_on_the_card_matches_the_cpu_path(card, kind):
+    """The same index contents and training on the card and on the CPU:
+    ids equal except at ranks within 1e-4 of a neighbour, the tie group
+    in index order, distances within 1e-4."""
+    from grafp_tpu_torch.retrieval import index as tix
+
+    db, q = _db_with_ties()
+    cpu = tix.get_index(kind, db.numpy(), db.shape, device="cpu")
+    if kind == "l2":
+        dev = tix.IndexFlat(128, card)
+    else:
+        cpu.nprobe = 8
+        dev = tix.IndexIVFPQ(128, cpu.nlist, card)
+        dev.centroids = cpu.centroids.to(card)
+        dev.pq.codebooks = cpu.pq.codebooks.to(card)
+        dev.is_trained = True
+    for idx in (cpu, dev):
+        idx.add(db.numpy())
+        idx.nprobe = 8
+    want_d, want_i = cpu.search(q.numpy(), 30)
+    got_d, got_i = dev.search(q.numpy(), 30)
+    assert np.abs(got_d - want_d).max() <= 1e-4
+    gaps = np.diff(want_d, axis=1)
+    close = (gaps > 0) & (gaps < 1e-4)
+    near = np.zeros(want_d.shape, bool)
+    near[:, 1:] |= close
+    near[:, :-1] |= close
+    assert (got_i[~near] == want_i[~near]).all()
+    if kind == "l2":
+        assert got_i[0, :21].tolist() == [50] + list(range(100, 120))
+
+
+def test_score_block_on_the_card_matches_the_host(card):
+    from grafp_tpu_torch.retrieval import evaluate as tev
+
+    db, _ = _db_with_ties(2000, 64, seed=1)
+    recon = db.numpy()
+    rs = np.random.RandomState(2)
+    tids = rs.randint(0, 1900, 40)
+    sl = 5
+    q = np.stack([recon[t:t + sl] for t in tids]) + 0.1 * rs.randn(40, sl, 64).astype(np.float32)
+    cand = np.concatenate([tids[:, None] + rs.randint(-3, 4, (40, 30)),
+                           np.full((40, 5), 100), rs.randint(1990, 2000, (40, 5))], 1)
+    cand_s, valid = tev._unique_candidates(cand)
+    _, got = tev._score_block(torch.as_tensor(recon, device=card),
+                              torch.as_tensor(q.astype(np.float32), device=card),
+                              torch.as_tensor(cand_s, device=card),
+                              torch.as_tensor(valid, device=card), sl)
+    _, want = tev._score_block_host(recon, q.astype(np.float32), cand_s, valid, sl)
+    assert (got.cpu().numpy() == want).all()
