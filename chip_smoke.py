@@ -17,7 +17,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      train paths' shapes, 2B = 512 in bf16;
   4. the serving path: build_model(Config(compute_dtype='bfloat16'),
      fuse_serving='off') with seeded random weights made to behave like
-     trained ones (``calibrate``), FingerprintPipeline.fingerprint_waves
+     trained ones (``calibrate`` of tests/torch_port_util.py, shared with the
+     CPU tests), FingerprintPipeline.fingerprint_waves
      (which serves a BatchNorm-folded copy) on 128 seeded 1-s music-like
      clips with every launch count set to 0 just before and read just
      after; then the same weights in f32, unfolded, through the plain
@@ -44,10 +45,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   7. times with CUDA events after warm-up: per kernel shape (kernel,
      plain version, bound; for the fused block also its three products as
      cuBLAS computes them, the yardstick), the bf16 serving forward as
-     fingerprints/s, unfused and fused, and the bf16 train step as ms,
-     samples/s and peak memory; the fused forward from log-mel unfolded
-     and folded, with the profiler's share of elementwise and reduction
-     kernels in each;
+     fingerprints/s, unfused and fused, and the train step at bsz_train =
+     256 as ms, samples/s and peak memory, bf16 and f32; the fused forward
+     from log-mel unfolded and folded, with the profiler's share of
+     elementwise and reduction kernels in each;
   8. the evaluation path at size t in bf16 with phase 4's weights and the
      'auto' (fused) model: create_dummy_db over 96 seeded music-like
      tracks of 20-40 s (launch counts set to 0 just before the three
@@ -67,16 +68,36 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      centroids, codebooks and codes, both outside a near-tie band; index
      train and add seconds, search queries/s (and by QUERY_CHUNK), and
      rescoring ms per length on the card beside the host's, whose top ids
-     must equal the card's on the twin catalogue.
+     must equal the card's on the twin catalogue;
+  9. the user's entry points at size t through their main(argv): a wav
+     corpus written by the port's save_wav (512 train tracks of 10 s, so
+     that bsz_train = 256 gives two steps an epoch; 120 val tracks of
+     30 s, 64 noise clips, 32 IRs) and config/grafp.yaml (bf16) pointed
+     at it; train_main for 2 epochs with validation from phase 4's
+     calibrated weights saved as an epoch-0 checkpoint (12 mrconv_concat
+     forward and backward launches a step, 12 grapher_block launches an
+     embed batch of validation), its resume to epoch 3 against two
+     uninterrupted 3-epoch runs (one with --cache_decoded), which must all
+     agree to RESUME_TOL, test_fp_main --small_test
+     against eval_faiss on its fingerprint dir, its dummy_db and db rows
+     each nearest its own fingerprint_track row in the frozen split's
+     order, and its clean db rows (made unit-norm) as queries 100 % top-1
+     at every length, generate_main in bf16 and
+     f32 (10 grapher_block + 2 mrconv_concat launches an embed batch)
+     against fingerprint_track; the epoch's wall time against phase 7's
+     fixed-batch step (the loader's share), the decode-once gain, and
+     generate's fp/s from files.
 
 The line before the last is the card (nvidia-smi), the one before it the
-kernels' JSON (launches by path, the DB build's under "db_build"); the last line is {"ok": true, "device": {...}}.
+kernels' JSON (launches by path: the DB build's under "db_build", the
+entry points' under "cli"); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -121,7 +142,6 @@ LOSS_RTOL, GNORM_RTOL, GRAD_COS = 1e-5, 1e-3, 0.9999
 # can round x1 or g to the other bf16 neighbour)
 BLOCK_RTOL = 1e-4
 BLOCK_ULPS = 3
-RESIDUAL_GAIN = 0.1            # see calibrate()
 
 
 def cosine(a, b):
@@ -130,37 +150,25 @@ def cosine(a, b):
     return (a * b).sum(-1) / ((a * a).sum(-1) * (b * b).sum(-1)) ** 0.5
 
 
-def hold_rows(what: str, got, ref, floor=None, mean_floor=None) -> float:
-    """Rows of ``got`` against the same rows of ``ref`` (arrays or tensors,
-    (rows, d)): each must lie nearer its own ref row than any other ref row
-    (by cosine), so that a shifted, swapped or misordered row fails; where
-    floors are given, the cosines to the own rows must exceed them, and
-    ``floor`` must exceed every cosine between a row and another ref row,
-    else it could not tell the rows apart. Returns the least cosine."""
-    g = torch.nn.functional.normalize(torch.as_tensor(got, device="cuda").float(), dim=1)
-    r = torch.nn.functional.normalize(torch.as_tensor(ref, device="cuda").float(), dim=1)
-    check(g.shape == r.shape, f"{what}: shapes {tuple(g.shape)} and {tuple(r.shape)}")
-    own, other = [], []
-    for i in range(0, len(g), 4096):
-        c = g[i:i + 4096] @ r.T
-        rows = torch.arange(len(c), device="cuda")
-        own.append(c[rows, rows + i])
-        c[rows, rows + i] = -2.0
-        other.append(c.max(1).values)
-    own, other = torch.cat(own), torch.cat(other)
-    margin = (own - other).min().item()
-    print(f"{what}: cos to the own row min {own.min().item():.7f} mean "
-          f"{own.mean().item():.7f}; to the nearest other row max "
-          f"{other.max().item():.6f}; least margin {margin:.4g} ({len(g)} rows)"
-          + (f"; floors {floor} / {mean_floor}" if floor else ""), flush=True)
-    check(margin > 0, f"{what}: a row lies nearer another row than its own")
-    if floor is not None:
-        check(floor > other.max().item(),
-              f"{what}: the floor {floor} cannot tell rows apart")
-        check(own.min().item() > floor, f"{what}: a row is below cos {floor}")
-    if mean_floor is not None:
-        check(own.mean().item() > mean_floor, f"{what}: mean cos below {mean_floor}")
-    return own.min().item()
+@functools.lru_cache(maxsize=None)
+def shared():
+    """tests/torch_port_util.py of this checkout, whose ``calibrate`` and
+    ``hold_rows`` the CPU tests use too, loaded by its path: a ``tests``
+    package installed on the machine would shadow the checkout's."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_port_util.py")
+    spec = importlib.util.spec_from_file_location("torch_port_util", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def hold_rows(what: str, got, ref, floor=None, mean_floor=None):
+    """The shared row check (each row nearest its own ref row, above the
+    floors, which must tell rows apart) on the card."""
+    return shared().hold_rows(what, got, ref, floor, mean_floor, device="cuda")
 
 
 def nvidia_smi() -> str:
@@ -430,44 +438,6 @@ def randomize(model: torch.nn.Module, g: torch.Generator) -> None:
                 rnd(m.bias, 0.1)
 
 
-def calibrate(model: torch.nn.Module, spec: torch.Tensor) -> None:
-    """Make seeded random weights behave like trained ones for the checks:
-    every residual branch's last BatchNorm scale times RESIDUAL_GAIN, then
-    every BatchNorm's running statistics set to the biased statistics of
-    its input in one train-mode forward over the log-mel ``spec``.
-
-    Without this the fingerprints of unrelated inputs crowd (mean pairwise
-    cosine 0.999996), so no cosine floor can tell two rows apart; with the
-    statistics alone the twelve residual branches at full gain turn f32
-    rounding into different k-NN selections layer after layer (a folded
-    and an unfolded f32 model then part to cosine 0.95)."""
-    from grafp_tpu_torch.models.layers import BatchNorm
-
-    stats, hooks = {}, []
-
-    def keep(bn, inputs):
-        x = inputs[0].to(torch.float32)
-        axes = tuple(range(x.dim() - 1))
-        mean = x.mean(axes)
-        stats[bn] = (mean, ((x - mean) ** 2).mean(axes))
-
-    with torch.no_grad():
-        for name, m in model.named_modules():
-            if name.endswith("fc2_bn"):
-                m.weight.mul_(RESIDUAL_GAIN)
-            if isinstance(m, BatchNorm):
-                hooks.append(m.register_forward_pre_hook(keep))
-        was = model.training
-        model.train(True)
-        model(spec)
-        model.train(was)
-        for h in hooks:
-            h.remove()
-        for bn, (mean, var) in stats.items():
-            bn.running_mean.copy_(mean)
-            bn.running_var.copy_(var)
-
-
 def clip_waves(n: int, fs: int, seed: int) -> torch.Tensor:
     """(n, fs) 1-s music-like clips on the card, each a track of its own."""
     return torch.as_tensor(np.stack(music_like_tracks(n, 1, 1, fs, seed)), device="cuda")
@@ -603,7 +573,8 @@ def eval_phase(cfg, state_dict, zero_counts, counts, card: str, work: str) -> di
     """Phase 8: wave -> DB memmaps -> index -> search -> sequence rescoring
     -> hit rates at size t in bf16 with the seeded weights ``state_dict``,
     through the port's entry points on the card. Returns the DB build's
-    launch counts. Every check raises."""
+    launch counts and its first, counted build's fp/s. Every check
+    raises."""
     from grafp_tpu_torch.fp.builder import (
         FingerprintPipeline,
         create_db,
@@ -850,7 +821,282 @@ def eval_phase(cfg, state_dict, zero_counts, counts, card: str, work: str) -> di
                   + f" [{card}]", flush=True)
             check(differ == 0, f"rescoring sl={sl}: card and host differ")
         del recon_dev
-    return db_build
+    return db_build, n_dummy / t_build
+
+
+# --- phase 9: the entry points --------------------------------------------
+# the corpus on disk (tracks, seconds each, seed): bsz_train = 256 gives two
+# train steps per epoch; 100 + 20 validation tracks, as config/grafp.yaml's
+# n_dummy and n_query
+CLI_CORPUS = {"train": (512, 10.0, 40), "val": (120, 30.0, 41),
+              "noise": (64, 10.0, 42), "ir": (32, 0.5, 43)}
+# largest |d| allowed between the parameters and statistics of a run resumed
+# after epoch 2 and of one that ran its 3 epochs uninterrupted, and between
+# two uninterrupted runs: on an H100 80GB HBM3 at 700 W two uninterrupted
+# 3-epoch runs of phase 9 were equal bit for bit, and so was the resumed one
+RESUME_TOL = 0.0
+
+
+def write_corpus(root: str, fs: int) -> dict:
+    """CLI_CORPUS as 16-bit wav files under ``root``/<name>/, written by the
+    port's save_wav: music-like train and val tracks, noise clips of
+    filtered noise at random gains, and exponentially decaying IRs."""
+    from grafp_tpu_torch.data.audio_io import save_wav
+
+    dirs = {}
+    for name, (n, secs, seed) in CLI_CORPUS.items():
+        rs = np.random.RandomState(seed)
+        if name in ("train", "val"):
+            waves = music_like_tracks(n, secs, secs, fs, seed)
+        elif name == "noise":
+            waves = [np.convolve(rs.randn(int(secs * fs)), np.ones(k) / k, "same")
+                     * rs.uniform(0.05, 0.5) for k in rs.randint(1, 30, n)]
+        else:
+            t = np.arange(int(secs * fs))
+            waves = [0.8 * rs.randn(len(t)) * np.exp(-t / (len(t) * rs.uniform(0.05, 0.3)))
+                     for _ in range(n)]
+        dirs[name] = os.path.join(root, name)
+        os.makedirs(dirs[name])
+        for i, w in enumerate(waves):
+            save_wav(os.path.join(dirs[name], f"{name}_{i:04d}.wav"), w, fs)
+    return dirs
+
+
+def run_cli(main_fn, argv, log_path, **kw):
+    """One CLI main in this process, its stdout into ``log_path`` (the
+    tail is printed when it raises)."""
+    try:
+        with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+            return main_fn(argv, **kw)
+    except BaseException:
+        with open(log_path) as log:
+            print("".join(log.readlines()[-40:]), file=sys.stderr)
+        raise
+
+
+def max_state_diff(a: dict, b: dict) -> float:
+    check(sorted(a) == sorted(b), "the two checkpoints hold other keys")
+    return max((a[k].double() - b[k].double()).abs().max().item() for k in a)
+
+
+def cli_phase(state_dict, zero_counts, counts, card: str, work: str,
+              step_ms: float, build_fps: float) -> dict:
+    """Phase 9: the user's entry points at full width on a wav corpus:
+    train_main (2 epochs with validation, from ``state_dict`` as an epoch-0
+    checkpoint), its resume against an uninterrupted run, test_fp_main
+    --small_test against eval_faiss, generate_main in bf16 and in f32
+    against fingerprint_track. Returns the launch counts of these runs.
+    Every check raises."""
+    import yaml
+
+    from grafp_tpu_torch.cli import generate_main, test_fp_main, train_main
+    from grafp_tpu_torch.core import load_config
+    from grafp_tpu_torch.data.dataset import FingerprintDataset
+    from grafp_tpu_torch.fp.builder import FingerprintPipeline
+    from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.retrieval.evaluate import eval_faiss
+    from grafp_tpu_torch.retrieval.memmap_io import load_memmap_data, save_memmap
+    from grafp_tpu_torch.train import create_train_state
+    from grafp_tpu_torch.train.checkpoint import load_ckp, save_ckp, train_payload
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(repo, "config", "grafp.yaml"))
+    fs, bsz = int(cfg["fs"]), int(cfg["bsz_train"])
+    t0 = time.perf_counter()
+    dirs = write_corpus(work, fs)
+    print(f"cli: wav corpus {', '.join(f'{k} {v[0]} x {v[1]} s' for k, v in CLI_CORPUS.items())}"
+          f" written in {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg["train_dir"], cfg["val_dir"] = dirs["train"], dirs["val"]
+    cfg["noise_dir"], cfg["ir_dir"] = dirs["noise"], dirs["ir"]
+    cfg["train_sz"], cfg["val_sz"] = CLI_CORPUS["train"][0], CLI_CORPUS["val"][0]
+    check(cfg["compute_dtype"] == "bfloat16", "config/grafp.yaml trains in bf16")
+    cfg.save(os.path.join(work, "smoke.yaml"))
+    cfg32 = load_config(os.path.join(work, "smoke.yaml"))
+    cfg32["compute_dtype"] = "float32"
+    cfg32.save(os.path.join(work, "smoke32.yaml"))
+    with open(os.path.join(work, "test_config.yaml"), "w") as f:
+        yaml.safe_dump({"smoke": ["current"]}, f)
+    log = os.path.join(work, "cli.log")
+    launches, got = {}, {}
+
+    def counted(name, fn):
+        zero_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got[name] = (counts(), time.perf_counter() - t)
+        for k, n in got[name][0].items():
+            launches[k] = launches.get(k, 0) + n
+        return out
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # the calibrated weights as an epoch-0 checkpoint, so that
+        # validation's hit rates are those of weights that tell tracks apart
+        start = build_model(cfg, train=True)
+        start.load_state_dict(state_dict)
+        save_ckp(train_payload(create_train_state(start, cfg), 0, [], []),
+                 "start", "checkpoint", 0)
+        del start
+        common = ["--config", "smoke.yaml", "--seed", "42"]
+        from_start = ["--resume", "checkpoint/model_start_0.pth"]
+
+        # a. train 2 epochs with validation
+        ha = counted("train", lambda: run_cli(train_main.main, common + from_start + [
+            "--ckp", "smoke", "--epochs", "2", "--validate_every", "1"], log))
+        ds = FingerprintDataset(cfg, dirs["val"], train=False)
+        tracks = [ds[i] for i in range(len(ds))]
+        pipe = FingerprintPipeline(build_model(cfg), cfg)
+        split = np.arange(len(ds))
+        np.random.seed(42)
+        np.random.shuffle(split)
+        n_dummy, n_query = int(cfg["n_dummy"]), int(cfg["n_query"])
+        calls = (embed_calls(pipe, [tracks[i] for i in split[:n_dummy]], pipe.build_pack)
+                 + 2 * embed_calls(pipe, [tracks[i] for i in split[n_dummy:n_dummy + n_query]],
+                                   pipe.build_pack))
+        steps = 2 * (CLI_CORPUS["train"][0] // bsz)
+        n_val = sum(h is not None for h in ha["hit_rates"])
+        c = got["train"][0]
+        print(f"cli train: 2 epochs at bsz_train {bsz} ({steps} steps), losses "
+              f"{ha['loss']}, validation at {n_val} epochs ({calls} embed batches each); "
+              f"launches {c}", flush=True)
+        check(all(np.isfinite(ha["loss"])), "a train loss is not finite")
+        check(c == {**{k: 0 for k in c}, "mrconv_concat": 12 * steps,
+                    "mrconv_concat_backward": 12 * steps, "grapher_block": 12 * calls * n_val},
+              f"expected {12 * steps} mrconv_concat forward and backward launches and "
+              f"{12 * calls * n_val} grapher_block launches")
+        for tag in ("current", "best"):
+            check(os.path.exists(f"checkpoint/model_smoke_{tag}.pth"), f"no {tag} checkpoint")
+        for e, hr in enumerate(ha["hit_rates"], 1):
+            print(f"cli validation epoch {e} hit rates (%), rows top-1 exact / near / "
+                  f"top-3 / top-10: " + json.dumps(np.round(hr, 4).tolist()))
+            check(hr.shape == (4, 6) and bool(((hr >= 0) & (hr <= 100)).all())
+                  and bool((hr[3] >= hr[2]).all() and (hr[2] >= hr[0]).all()),
+                  "validation hit rates malformed")
+
+        # b. resume to epoch 3 against 3 uninterrupted epochs, twice: decoded
+        # once (--cache_decoded) and decoded every epoch
+        hb = counted("resume", lambda: run_cli(train_main.main, common + [
+            "--ckp", "smoke", "--epochs", "3", "--validate_every", "0",
+            "--resume", "checkpoint/model_smoke_current.pth"], log))
+        hc = counted("uninterrupted", lambda: run_cli(train_main.main, common + from_start + [
+            "--ckp", "smoke_one", "--epochs", "3", "--validate_every", "0",
+            "--cache_decoded"], log))
+        hd = counted("uninterrupted again", lambda: run_cli(
+            train_main.main, common + from_start + [
+                "--ckp", "smoke_two", "--epochs", "3", "--validate_every", "0"], log))
+        resumed = load_ckp("checkpoint/model_smoke_current.pth")
+        one = load_ckp("checkpoint/model_smoke_one_current.pth")
+        diff = max_state_diff(resumed["state_dict"], one["state_dict"])
+        spread = max_state_diff(one["state_dict"], load_ckp(
+            "checkpoint/model_smoke_two_current.pth")["state_dict"])
+        print(f"cli resume: epoch 3 losses resumed {hb['loss']} vs uninterrupted "
+              f"{hc['loss'][2:]} and {hd['loss'][2:]}; steps {resumed['step']} vs "
+              f"{one['step']}; largest |d| of the parameters and statistics, resumed vs "
+              f"uninterrupted {diff:.3g}, two uninterrupted runs {spread:.3g} (tolerance "
+              f"{RESUME_TOL:g})", flush=True)
+        check(resumed["epoch"] == one["epoch"] == 3 and resumed["step"] == one["step"],
+              "the resumed run did not reach the uninterrupted one's epoch and step")
+        check(spread <= RESUME_TOL, f"two uninterrupted runs differ by {spread}")
+        check(diff <= RESUME_TOL, f"resumed parameters differ by {diff}")
+
+        # e. the loader's share and the decode cache
+        for name, h in (("train", ha), ("uninterrupted --cache_decoded", hc),
+                        ("uninterrupted", hd)):
+            for e, secs in enumerate(h["epoch_seconds"], 1):
+                fixed = steps // 2 * step_ms / 1e3
+                print(f"cli {name} epoch {e}: {secs:.3f} s for {steps // 2} steps; "
+                      f"{steps // 2} x the fixed-batch step ({step_ms:.3f} ms) = {fixed:.3f} s, "
+                      f"so the loader's share is {1 - fixed / secs:.3f} [{card}]", flush=True)
+
+        # every val track's fingerprints by fingerprint_track with the
+        # resumed checkpoint, which test_fp and generate read
+        model = build_model(cfg)
+        model.load_state_dict(resumed["state_dict"])
+        track_pipe = FingerprintPipeline(model, cfg)
+        by_track = [track_pipe.fingerprint_track(w) for w in tracks]
+
+        # c. test_fp --small_test on the trained checkpoint
+        frozen = np.random.RandomState(0).permutation(len(ds))
+        np.save(os.path.join("data", "val_indices.npy"), frozen)
+        res = counted("test_fp", lambda: run_cli(test_fp_main.main, [
+            "--config", "smoke.yaml", "--test_config", "test_config.yaml",
+            "--test_dir", dirs["val"], "--n_query_db", str(n_query), "--small_test"], log))
+        (fp_dir, hit_rates), = res.values()
+        saved = [os.path.join(r, "hit_rates.npy") for r, _, fs_ in os.walk(fp_dir)
+                 if "hit_rates.npy" in fs_]
+        direct = eval_faiss(fp_dir, test_ids="2000", index_type="l2", verbose=False)
+        c, secs = got["test_fp"]
+        print(f"cli test_fp --small_test: {secs:.3f} s, launches {c}; hit rates " +
+              json.dumps(np.round(hit_rates, 4).tolist()) + f" [{card}]", flush=True)
+        check(c == {**{k: 0 for k in c}, "grapher_block": 12 * calls},
+              f"expected {12 * calls} grapher_block launches and no other")
+        check(len(saved) == 1, f"hit_rates.npy files: {saved}")
+        saved = np.load(saved[0])
+        check(saved.shape == (4, 6) and bool(((saved >= 0) & (saved <= 100)).all())
+              and bool((saved[3] >= saved[2]).all() and (saved[2] >= saved[0]).all()),
+              "test_fp hit rates malformed")
+        check(np.array_equal(saved, hit_rates) and np.array_equal(saved, direct),
+              "test_fp's hit rates differ from eval_faiss on its fingerprint dir")
+        # its clean DBs hold the frozen split's tracks in its order, and its
+        # clean rows as queries find themselves among its dummy rows once
+        # every row is unit-norm in f32: bf16 fingerprints are normalised in
+        # bf16 (norms 1 to about 0.3 %), and the rescoring's inner products
+        # then prefer a longer neighbour a hop away (cos up to 0.9997 at
+        # overlap 0.9) to the row itself, so the raw rows are only printed
+        n_db = len(ds) - n_query
+        dbs = {name: np.array(load_memmap_data(fp_dir, name, display=False)[0])
+               for name in ("dummy_db", "db")}
+        for name, ids in (("dummy_db", frozen[:n_db]), ("db", frozen[n_db:])):
+            hold_rows(f"cli test_fp {name}.mm vs fingerprint_track of the frozen split's "
+                      f"tracks in its order", dbs[name],
+                      np.concatenate([by_track[i] for i in ids]))
+        norms = np.linalg.norm(np.concatenate(list(dbs.values())), axis=1)
+        clean = {}
+        for name, unit in (("as built", False), ("unit-norm", True)):
+            rows = {k: v / np.linalg.norm(v, axis=1, keepdims=True) if unit else v
+                    for k, v in dbs.items()}
+            out = os.path.join("clean_queries", "unit" if unit else "raw")
+            save_memmap(out, "dummy_db", rows["dummy_db"])
+            save_memmap(out, "db", rows["db"])
+            save_memmap(out, "query", rows["db"])
+            clean[name] = eval_faiss(out, test_ids="2000", index_type="l2", verbose=False)
+            print(f"cli test_fp: its clean db rows {name} (norms {norms.min():.5f}-"
+                  f"{norms.max():.5f}) as queries, hit rates "
+                  + json.dumps(np.round(clean[name], 4).tolist()), flush=True)
+        check(bool((clean["unit-norm"][0] == 100).all()),
+              "test_fp: a clean db row as a query misses its own row")
+
+        # d. generate, bf16 then f32, against fingerprint_track
+        rows = sum(pipe._pad_track(w)[1] for w in tracks)
+        gen_calls = embed_calls(pipe, tracks, pipe.build_pack)
+        fps = {}
+        for name, config, fused in (("bf16", "smoke.yaml", 12), ("f32", "smoke32.yaml", 10)):
+            fp = counted(f"generate {name}", lambda: run_cli(generate_main.main, [
+                "--config", config, "--test_dir", dirs["val"], "--ckp",
+                "checkpoint/model_smoke_current.pth", "--output_dir", f"gen_{name}"], log))
+            c, secs = got[f"generate {name}"]
+            check(np.array_equal(np.load(f"gen_{name}/fingerprints.npy"), fp),
+                  f"generate {name}: fingerprints.npy differs from the rows it returned")
+            fps[name] = fp
+            print(f"cli generate {name}: {fp.shape} in {secs:.3f} s = {len(fp) / secs:.1f} "
+                  f"fp/s from wav files (phase 8's in-memory build: {build_fps:.1f} fp/s); "
+                  f"launches {c} [{card}]", flush=True)
+            check(fp.shape == (rows, cfg["d"]) and bool(np.isfinite(fp).all()),
+                  f"generate {name}: {fp.shape} for {rows} segments")
+            check(bool((np.abs(np.linalg.norm(fp, axis=1) - 1) < 1e-2).all()),
+                  f"generate {name}: rows not unit-norm")
+            check(c == {**{k: 0 for k in c}, "grapher_block": fused * gen_calls,
+                        "mrconv_concat": (12 - fused) * gen_calls},
+                  f"expected {fused * gen_calls} grapher_block and "
+                  f"{(12 - fused) * gen_calls} mrconv_concat launches")
+        hold_rows("cli generate bf16 vs fingerprint_track", fps["bf16"],
+                  np.concatenate(by_track))
+        hold_rows("cli generate f32 vs bf16", fps["f32"], fps["bf16"])
+    finally:
+        os.chdir(cwd)
+    return launches
 
 
 def main() -> int:
@@ -969,7 +1215,7 @@ def main() -> int:
     model32 = build_model(cfg32, generator=torch.Generator().manual_seed(0),
                           fuse_serving="off")
     randomize(model32, torch.Generator().manual_seed(1))
-    calibrate(model32, clip_spec(cfg32, 512, seed=9))
+    shared().calibrate(model32, clip_spec(cfg32, 512, seed=9))
     model16 = build_model(cfg16, fuse_serving="off")
     model16.load_state_dict(model32.state_dict())
     pipe16 = FingerprintPipeline(model16, cfg16)
@@ -1241,6 +1487,19 @@ def main() -> int:
           f"per step the 12 forward launches take {fwd_train_ms:.3f} ms and the 12 "
           f"backward launches {sums['mrconv_concat_backward']['ms']:.3f} ms; peak "
           f"memory {peak_gb:.2f} GB (max_memory_allocated) [{card}]")
+    # the same step in f32, Config()'s default compute_dtype
+    del state, step, tmodel
+    torch.cuda.empty_cache()
+    fmodel = build_model(cfg32, generator=torch.Generator().manual_seed(5), train=True)
+    fstate = create_train_state(fmodel, cfg32, steps_per_epoch=100)
+    fstep = make_train_step(fmodel, cfg32, banks)
+    torch.cuda.reset_peak_memory_stats()
+    t_f32 = time_ms(lambda: fstep(fstate, x_i, x_j, gen), reps=2, warmup=1)
+    print(f"train step f32 bsz_train={bsz}: {t_f32:.3f} ms, {bsz / t_f32 * 1e3:.1f} "
+          f"samples/s; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(max_memory_allocated) [{card}]", flush=True)
+    del fmodel, fstate, fstep
+    torch.cuda.empty_cache()
     # the fold's effect on the fused forward: the same weights unfolded,
     # and fused against unfused once both are folded, at B and 2B (the DB
     # build's batch), in turns
@@ -1265,9 +1524,21 @@ def main() -> int:
     # 8. the evaluation path
     print(f"phase 8 at {time.perf_counter() - t_all:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as work:
-        db_build = eval_phase(cfg16, model16.state_dict(), zero_counts, counts, card, work)
+        db_build, build_fps = eval_phase(cfg16, model16.state_dict(), zero_counts, counts,
+                                         card, work)
     for name in wrappers:
         launches[name]["db_build"] = db_build.get(name, 0)
+    torch.cuda.empty_cache()
+
+    # 9. the entry points
+    print(f"phase 9 at {time.perf_counter() - t_all:.1f} s", flush=True)
+    t9 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        cli = cli_phase(model16.state_dict(), zero_counts, counts, card, work, t_step,
+                        build_fps)
+    for name in wrappers:
+        launches[name]["cli"] = cli.get(name, 0)
+    print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     sources = {"mrconv_concat": ("mrconv_concat.cu", "grafp_tpu/ops/pallas_knn.py:376"),

@@ -206,3 +206,8 @@ def config_from_dict(raw: Dict[str, Any]) -> Config:
     cfg.val_snr = _as_list(cfg.val_snr, 2)
     cfg.test_snr = _as_list(cfg.test_snr, 2)
     return cfg
+
+
+def override(config_val: Any, arg: Any) -> Any:
+    """CLI-over-YAML precedence, as the reference's util.py:129-130."""
+    return arg if arg is not None else config_val

@@ -11,7 +11,14 @@ JAX's ``track_corruption_keys``. The port's packing changes no row
 beyond f32 summation order: max |d| <= 1e-3 on the unit-norm
 fingerprints (the batch's make-up changes the CPU product's blocking,
 which a k-NN near tie amplifies; a row in the wrong place would be off by
-~0.1) and 1e-5 on corrupted waves."""
+~0.1) and 1e-5 on corrupted waves.
+
+The weights: the port's initial ones with random BatchNorm affines,
+calibrated as chip_smoke.py's are (residual branches' last BatchNorm scale
+0.1, statistics from a train-mode forward over segments of other noise
+tracks), so that rows differ; every built row must lie nearer its own
+reference row than any other, above a cosine floor that exceeds every
+cosine between two different rows (``hold_rows``)."""
 
 import numpy as np
 import pytest
@@ -32,10 +39,13 @@ from grafp_tpu_torch.fp import builder as tb  # noqa: E402
 from grafp_tpu_torch.models import build_model  # noqa: E402
 from grafp_tpu_torch.retrieval import memmap_io as tmm  # noqa: E402
 from tests.torch_port_util import (  # noqa: E402
-    jax_variables_from_port,
+    calibrated_jax_variables,
+    hold_rows,
     load_jax_weights,
-    randomize_jax_variables,
+    one_torch_thread,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TINY = dict(fs=1000, win_len=256, hop_len=128, n_fft=256, n_mels=16, n_frames=8,
             overlap=0.5, val_snr=[5, 15])
@@ -63,11 +73,13 @@ def pipes():
     jm = j_build_model(jcfg)
     cfg = Config(**TINY)
     # the port's initial weights through the bridge (eval_shape compiles
-    # nothing), BatchNorms randomised
+    # nothing), BatchNorms randomised and calibrated on other tracks' segments
     shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.key(0)},
                                             jnp.zeros((1, 16, 8)), False))
-    params, stats = randomize_jax_variables(
-        *jax_variables_from_port(build_model(cfg, device="cpu"), shapes))
+    model = build_model(cfg, device="cpu")
+    segs = tb.FingerprintPipeline(model, cfg, bucket_s=2.0, device="cpu").segments_for
+    spec = np.concatenate([segs(w) for w in _waves(99)])
+    params, stats = calibrated_jax_variables(model, shapes, spec)
     jp = jb.FingerprintPipeline(jm, jcfg, params, stats, batch_size=16, bucket_s=2.0)
     port = load_jax_weights(build_model(cfg, device="cpu"), params, stats)
     tp = tb.FingerprintPipeline(port, cfg, batch_size=16, bucket_s=2.0, device="cpu")
@@ -99,12 +111,13 @@ def _jax_draws(jbanks, n, seed, snr):
     return out
 
 
-def _assert_rows_close(got, want):
+def _assert_rows_close(got, want, what="rows"):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape and len(got) > 0
     cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
                                   * np.linalg.norm(want, axis=-1))
     assert (cos > 0.9999).all(), cos.min()
+    hold_rows(what, got, want, 0.9999)
 
 
 def test_memmap_writer_and_save_are_byte_equal_to_jax(tmp_path):
@@ -135,7 +148,7 @@ def test_create_dummy_db_matches_jax(pipes, tmp_path):
     want, _ = jmm.load_memmap_data(str(tmp_path / "jax"), "dummy_db", display=False)
     got, _ = tmm.load_memmap_data(str(tmp_path / "port"), "dummy_db", display=False)
     assert len(got) == sum(len(tp.segments_for(w)) for w in waves)
-    _assert_rows_close(got, want)
+    _assert_rows_close(got, want, "create_dummy_db port vs JAX")
 
 
 def test_create_fp_db_with_jax_draws_matches_jax(pipes, tmp_path):
@@ -150,7 +163,7 @@ def test_create_fp_db_with_jax_draws_matches_jax(pipes, tmp_path):
     for name in ("db", "query"):
         want, _ = jmm.load_memmap_data(str(tmp_path / "jax"), name, display=False)
         got, _ = tmm.load_memmap_data(str(tmp_path / "port"), name, display=False)
-        _assert_rows_close(got, want)
+        _assert_rows_close(got, want, f"create_fp_db {name} port vs JAX")
     db, _ = tmm.load_memmap_data(str(tmp_path / "port"), "db", display=False)
     q, _ = tmm.load_memmap_data(str(tmp_path / "port"), "query", display=False)
     assert len(db) == len(q) and not np.allclose(db, q)
@@ -161,7 +174,7 @@ def test_create_db_matches_jax(pipes, tmp_path):
     waves = _waves(4)[:4]
     want = jb.create_db(waves, jp, str(tmp_path / "jax"), verbose=False, pack=PACK)
     got = tb.create_db(waves, tp, str(tmp_path / "port"), verbose=False, pack=PACK)
-    _assert_rows_close(got, want)
+    _assert_rows_close(got, want, "create_db port vs JAX")
     np.testing.assert_array_equal(np.load(tmp_path / "port" / "fingerprints.npy"), got)
     per_track = tb.create_db(waves, tp, str(tmp_path / "obj"), concat=False,
                              verbose=False)
@@ -179,6 +192,8 @@ def test_packing_changes_no_row(pipes, pack):
         want = tp.fingerprint_track(w)
         assert z.shape == want.shape
         np.testing.assert_allclose(z, want, rtol=0, atol=1e-3)
+    want = np.concatenate([tp.fingerprint_track(w) for w in waves])
+    hold_rows(f"pack {pack} vs fingerprint_track", np.concatenate(got), want, 0.9999)
     draws = tb.track_corruption_draws(tbanks, len(waves), 0, tp.val_snr)
     dirty = tp.corrupt_tracks(waves, tbanks, draws, pack=pack)
     for w, d, y in zip(waves, draws, dirty):
@@ -228,6 +243,7 @@ def test_builders_take_a_track_loader_and_read_it_in_order(pipes, tmp_path):
     want = np.concatenate(tp.fingerprint_tracks(waves))
     assert n == len(want)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    hold_rows("track loader build vs fingerprint_tracks", got, want, 0.9999)
 
 
 def test_chunks_and_track_waves_keep_order():
@@ -253,6 +269,7 @@ def test_embed_stream_keeps_order_and_count(pipes, tmp_path):
     data, _ = tmm.load_memmap_data(str(tmp_path), "t", display=False)
     want = tp.embed(np.concatenate(blocks)).numpy()
     np.testing.assert_allclose(data, want, rtol=0, atol=1e-3)
+    hold_rows("embed_stream vs embed", data, want, 0.9999)
 
 
 def test_builder_entry_points_default_to_the_card():

@@ -12,7 +12,14 @@ on some weight draws the fingerprints by more than 1e-4; the mean over
 nodes dilutes them). The folded port against the JAX model run on
 ``fold_batch_norms`` + ``neutral_batch_stats``: tests/test_torch_port_model.py's
 rtol/atol 2e-3 on (h, z) and cos(z) > 0.9999. The JAX side runs its
-default CPU path."""
+default CPU path.
+
+The weights: the port's initial ones with random BatchNorm affines,
+calibrated as chip_smoke.py's are (residual branches' last BatchNorm scale
+0.1, statistics from a train-mode forward), so that unrelated inputs give
+distinct fingerprints; every row must also lie nearer its own reference
+row than any other, above a cosine floor that exceeds every cosine between
+two different rows (``hold_rows``)."""
 
 import numpy as np
 import pytest
@@ -33,26 +40,29 @@ from grafp_tpu_torch.models.fold_bn import fold_batch_norms, neutral_batch_stats
 from grafp_tpu_torch.models.layers import BatchNorm  # noqa: E402
 from grafp_tpu_torch.models.simclr import _check_kernel_shapes  # noqa: E402
 from tests.torch_port_util import (  # noqa: E402
-    jax_variables_from_port,
+    calibrated_jax_variables,
+    hold_rows,
     load_jax_weights,
-    randomize_jax_variables,
+    one_torch_thread,
     to_torch,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 KW = dict(n_mels=16, n_frames=16)           # N = 128 nodes, size t
 
 
 @pytest.fixture(scope="module")
 def jax_tree():
-    """The JAX model and a random (params, batch_stats) pair: the port's
-    initial weights through the bridge (``jax.eval_shape`` of the init
-    gives the tree without compiling it), BatchNorms randomised."""
+    """The JAX model and a (params, batch_stats) pair: the port's initial
+    weights through the bridge (``jax.eval_shape`` of the init gives the
+    tree without compiling it), BatchNorms randomised and calibrated on 64
+    spectrograms drawn as ``_spec`` draws them."""
     model = j_build_model(JConfig(**KW))
     shapes = jax.eval_shape(lambda: model.init({"params": jax.random.key(0)},
                                                jnp.zeros((1, 16, 16)), False))
-    params, stats = jax_variables_from_port(build_model(Config(**KW), device="cpu"),
-                                            shapes)
-    params, stats = randomize_jax_variables(params, stats)
+    params, stats = calibrated_jax_variables(build_model(Config(**KW), device="cpu"),
+                                             shapes, to_torch(_spec(100, b=64)))
     return model, params, stats
 
 
@@ -97,13 +107,14 @@ def test_folded_port_matches_unfolded(jax_tree, fuse):
     assert _bn_count(port) == 64 and _bn_count(folded) == 0
     for key, val in port.state_dict().items():
         assert torch.equal(val, before[key]), key     # the input model stays
-    x = to_torch(_spec())
+    x = to_torch(_spec(b=8))
     with torch.no_grad():
         h, z = port(x)
         hf, zf = folded(x)
         _, zff = fold_batch_norms(folded)(x)          # folding twice is a no-op
     assert float((zf - z).abs().max()) <= 1e-3 and _close(hf, h, 1e-3)
     assert bool(((zf * z).sum(-1) > 0.99999).all())
+    hold_rows(f"folded vs unfolded port (fuse {fuse})", zf, z, 0.99999)
     assert torch.equal(zff, zf)
 
 
@@ -113,7 +124,7 @@ def test_folded_port_matches_jax_folded_tree(jax_tree):
     the port through neutral_batch_stats and state_dict_from_jax."""
     model, params, stats = jax_tree
     jf, jn = j_fold(params, stats), j_neutral(stats)
-    spec = _spec(1)
+    spec = _spec(1, b=8)
     want_h, want_z = model.apply({"params": jf, "batch_stats": jn},
                                  jnp.asarray(spec), False)
     want_h, want_z = np.asarray(want_h), np.asarray(want_z)
@@ -130,6 +141,7 @@ def test_folded_port_matches_jax_folded_tree(jax_tree):
             np.testing.assert_allclose(h.numpy(), want_h, rtol=2e-3, atol=2e-3)
             np.testing.assert_allclose(z.numpy(), want_z, rtol=2e-3, atol=2e-3)
             assert ((z.numpy() * want_z).sum(-1) > 0.9999).all()
+            hold_rows("port vs JAX folded tree", z.numpy(), want_z, 0.9999)
 
 
 def test_pipeline_serves_the_folded_model(jax_tree):
@@ -138,8 +150,10 @@ def test_pipeline_serves_the_folded_model(jax_tree):
     pipe = FingerprintPipeline(port, Config(**KW), device="cpu")
     assert _bn_count(pipe.model) == 0 and _bn_count(port) == 64
     with torch.no_grad():
-        _, z = port(to_torch(_spec(2)))
-    assert (pipe.embed(_spec(2)) - z).abs().max() <= 1e-3
+        _, z = port(to_torch(_spec(2, b=8)))
+    served = pipe.embed(_spec(2, b=8))
+    assert (served - z).abs().max() <= 1e-3
+    hold_rows("pipeline (folded) vs the port model", served, z, 0.99999)
 
 
 def test_auto_keeps_the_unfused_path_on_the_cpu(monkeypatch):

@@ -5,6 +5,7 @@ package and the port, so both compute on identical values.
 """
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -82,3 +83,122 @@ def jax_variables_from_port(model, shapes):
         return out
 
     return build(shapes["params"]), build(shapes.get("batch_stats", {}))
+
+
+# every residual branch's last BatchNorm scale is multiplied by this in
+# calibrate()
+RESIDUAL_GAIN = 0.1
+
+
+def calibrate(model, spec, forward=None, last_bn=("fc2_bn",)) -> None:
+    """Make seeded random weights behave like trained ones for the row
+    checks (here and in chip_smoke.py): the scale of every residual
+    branch's last BatchNorm (the modules whose names end with one of
+    ``last_bn``) times RESIDUAL_GAIN, then every BatchNorm's running
+    statistics set to the biased statistics of its input in one train-mode
+    forward (``forward``, else ``model``) over the log-mel ``spec``. The
+    port's BatchNorm normalises the last axis, torch's BatchNorm1d/2d (the
+    reference replica's) axis 1.
+
+    Without this the fingerprints of unrelated inputs crowd (mean pairwise
+    cosine 0.999996), so no cosine floor can tell two rows apart; with the
+    statistics alone the twelve residual branches at full gain turn f32
+    rounding into different k-NN selections layer after layer (a folded
+    and an unfolded f32 model then part to cosine 0.95)."""
+    from grafp_tpu_torch.models.layers import BatchNorm
+
+    stats, hooks = {}, []
+
+    def keep(bn, inputs):
+        x = inputs[0].to(torch.float32)
+        if not isinstance(bn, BatchNorm):
+            x = x.movedim(1, -1)
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes)
+        stats[bn] = (mean, ((x - mean) ** 2).mean(axes))
+
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name.endswith(tuple(last_bn)):
+                m.weight.mul_(RESIDUAL_GAIN)
+            if isinstance(m, (BatchNorm, torch.nn.modules.batchnorm._BatchNorm)):
+                hooks.append(m.register_forward_pre_hook(keep))
+        was = model.training
+        model.train(True)
+        (forward or model)(torch.as_tensor(spec))
+        model.train(was)
+        for h in hooks:
+            h.remove()
+        for bn, (mean, var) in stats.items():
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+
+
+def calibrated_jax_variables(model, shapes, spec, seed: int = 0):
+    """A flax (params, batch_stats) pair for the JAX tree of ``shapes`` and
+    the same weights in the port ``model``: BatchNorm affines and
+    grouped-conv biases drawn as ``randomize_jax_variables`` does, then
+    ``calibrate``d on ``spec`` in the port and mapped back to the JAX tree
+    by ``jax_variables_from_port``."""
+    load_jax_weights(model, *randomize_jax_variables(
+        *jax_variables_from_port(model, shapes), seed=seed))
+    calibrate(model, spec)
+    return jax_variables_from_port(model, shapes)
+
+
+def hold_rows(what: str, got, ref, floor=None, mean_floor=None, device=None):
+    """Rows of ``got`` against the same rows of ``ref`` (arrays or tensors,
+    (rows, d)), here and in chip_smoke.py: each must lie nearer its own ref
+    row than any other ref row (by cosine, in f64 on ``device``, else the
+    CPU), so that a shifted, swapped or misordered row fails; where floors
+    are given, the cosines to the own rows must exceed them, and ``floor``
+    must exceed every cosine between a row and another ref row, else it
+    could not tell the rows apart. Prints the cosines; raises
+    AssertionError. Returns (least cosine to the own row, largest cosine
+    between two different rows)."""
+    dev = torch.device(device or "cpu")
+
+    def rows(x):
+        x = x if torch.is_tensor(x) else torch.from_numpy(np.array(x, np.float64))
+        return torch.nn.functional.normalize(x.to(dev, torch.float64), dim=1)
+
+    g, r = rows(got), rows(ref)
+
+    def require(cond, msg):
+        if not cond:
+            raise AssertionError(f"{what}: {msg}")
+
+    require(g.shape == r.shape and len(g) > 1,
+            f"shapes {tuple(g.shape)} and {tuple(r.shape)}")
+    own, other = [], []
+    for i in range(0, len(g), 4096):
+        c = g[i:i + 4096] @ r.T
+        rows = torch.arange(len(c), device=dev)
+        own.append(c[rows, rows + i])
+        c[rows, rows + i] = -2.0
+        other.append(c.max(1).values)
+    own, other = torch.cat(own), torch.cat(other)
+    least, largest = own.min().item(), other.max().item()
+    print(f"{what}: cos to the own row min {least:.8f} mean {own.mean().item():.8f}; "
+          f"largest cosine between two different rows {largest:.6f}; least margin "
+          f"{(own - other).min().item():.4g} ({len(g)} rows)"
+          + (f"; floors {floor} / {mean_floor}" if floor else ""), flush=True)
+    require(bool((own > other).all()), "a row lies nearer another row than its own")
+    if floor is not None:
+        require(floor > largest, f"the floor {floor} cannot tell rows apart")
+        require(least > floor, f"a row is below cos {floor}")
+    if mean_floor is not None:
+        require(own.mean().item() > mean_floor, f"mean cos below {mean_floor}")
+    return least, largest
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for a test module. The suite runs
+    several test processes at once (pytest-xdist), and each process's
+    default thread team, one thread per core, otherwise spin-waits on the
+    other processes' cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
