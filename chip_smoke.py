@@ -86,11 +86,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      f32 (10 grapher_block + 2 mrconv_concat launches an embed batch)
      against fingerprint_track; the epoch's wall time against phase 7's
      fixed-batch step (the loader's share), the decode-once gain, and
-     generate's fp/s from files.
+     generate's fp/s from files;
+ 10. the baseline encoders, which run no kernel of the port (every step
+     counts no launch): the AST under config/ast.yaml (bf16) and NAFP under
+     Config(arch='nafp', n_mels=256) (the repo has no NAFP config), each
+     with seeded weights spread by ``calibrate_baseline`` of
+     tests/torch_port_util.py: fingerprint_waves on 128 music-like 1-s
+     clips against the same weights in f32 through the CPU path's
+     attention on the card (``hold_rows``), timed as fp/s; the AST's
+     fingerprint_track of a 10 s track; 5 AST train steps at bsz_train 512
+     and 3 NAFP steps at 256 on a fixed batch with synthetic banks (losses
+     finite and falling; ms a step, samples/s, peak memory); then on phase
+     9's corpus baseline_train (AST, one epoch with validation),
+     baseline_test_fp --small_test --model tc10 (its DB rows each nearest
+     its own fingerprint_track row in the frozen split's order) and
+     generate_main with the AST config against fingerprint_track.
 
 The line before the last is the card (nvidia-smi), the one before it the
 kernels' JSON (launches by path: the DB build's under "db_build", the
-entry points' under "cli"); the last line is {"ok": true, "device": {...}}.
+entry points' under "cli", phase 10's under "baselines"); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -529,11 +544,9 @@ def ids_agree(got, want, dist):
     return bool((got[~near] == want[~near]).all()), float(1 - near.mean())
 
 
-def elementwise_ms(fn, iters: int = 5):
-    """(device busy ms, elementwise and reduction kernels ms) per call of
-    ``fn`` under torch.profiler; the second counts PyTorch's
-    elementwise_kernel / vectorized / unrolled and reduce_kernel
-    launches."""
+def cuda_events(fn, iters: int):
+    """torch.profiler's CUDA kernel averages over ``iters`` calls of ``fn``,
+    after one call outside the profile."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -542,7 +555,15 @@ def elementwise_ms(fn, iters: int = 5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+
+
+def elementwise_ms(fn, iters: int = 5):
+    """(device busy ms, elementwise and reduction kernels ms) per call of
+    ``fn`` under torch.profiler; the second counts PyTorch's
+    elementwise_kernel / vectorized / unrolled and reduce_kernel
+    launches."""
+    events = cuda_events(fn, iters)
     busy = sum(e.device_time_total for e in events) / 1e3 / iters
     elem = sum(e.device_time_total for e in events
                if "elementwise" in e.key or "reduce_kernel" in e.key) / 1e3 / iters
@@ -1099,6 +1120,229 @@ def cli_phase(state_dict, zero_counts, counts, card: str, work: str,
     return launches
 
 
+# --- phase 10: the baseline encoders -------------------------------------
+AST_TRAIN_STEPS = 5
+NAFP_TRAIN_STEPS = 3
+NAFP_BSZ = 256
+
+
+def device_profile(fn, iters: int = 3, top: int = 6):
+    """(device busy ms per call, [(kernel, ms per call), ...] the ``top``
+    kernels by device time) of ``fn`` under torch.profiler."""
+    events = sorted(cuda_events(fn, iters), key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in events) / 1e3 / iters
+    return busy, [(e.key[:60], e.device_time_total / 1e3 / iters) for e in events[:top]]
+
+
+def print_profile(what: str, wall_ms: float, fn, card: str) -> None:
+    busy, kernels = device_profile(fn)
+    print(f"{what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms (share "
+          f"{busy / wall_ms:.3f}); top kernels " + "; ".join(
+              f"{k} {ms:.3f}" for k, ms in kernels) + f" [{card}]", flush=True)
+
+
+@contextlib.contextmanager
+def reference_attention():
+    """Route the AST's attention through its explicit form (the CPU path)
+    on the card, for the f32 reference rows."""
+    import grafp_tpu_torch.models.ast as ast
+
+    saved = ast.dot_product_attention
+    ast.dot_product_attention = ast.dot_product_attention_reference
+    try:
+        yield
+    finally:
+        ast.dot_product_attention = saved
+
+
+def baseline_serving(name, cfg, waves, zero_counts, counts, card: str) -> dict:
+    """One baseline's serving check: ``cfg`` (bf16) with seeded weights
+    spread by ``calibrate_baseline``, fingerprint_waves on ``waves`` with
+    no kernel launch, held against the same weights in f32 through the
+    CPU-path attention on the card, and timed as fp/s at B = len(waves).
+    Returns the bf16 model and its times."""
+    from grafp_tpu_torch.fp import FingerprintPipeline
+    from grafp_tpu_torch.models import build_model
+
+    model = build_model(cfg, generator=torch.Generator().manual_seed(30))
+    shared().calibrate_baseline(model, seed=31)
+    cfg32 = copy.deepcopy(cfg)
+    cfg32["compute_dtype"] = "float32"
+    model32 = build_model(cfg32)
+    model32.load_state_dict(model.state_dict())
+    pipe = FingerprintPipeline(model, cfg)
+    zero_counts()
+    z = pipe.fingerprint_waves(waves)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"{name} serving bf16 B={len(waves)}: launches {got}", flush=True)
+    check(not any(got.values()), f"{name} serving launched a kernel of the port")
+    check(z.shape == (len(waves), cfg["d"]) and bool(torch.isfinite(z).all()),
+          f"{name}: z not finite or misshapen")
+    with reference_attention():
+        z32 = FingerprintPipeline(model32, cfg32).fingerprint_waves(waves)
+    hold_rows(f"{name} bf16 vs f32 (the CPU path's attention on the card)", z, z32,
+              COS_MIN_FLOOR, COS_MEAN_FLOOR)
+    t = time_ms(lambda: pipe.fingerprint_waves(waves), reps=10)
+    print(f"{name} serving bf16 B={len(waves)}: {t:.3f} ms, {len(waves) / t * 1e3:.1f} fp/s "
+          f"[{card}]", flush=True)
+    print_profile(f"{name} serving bf16 B={len(waves)} profile", t,
+                  lambda: pipe.fingerprint_waves(waves), card)
+    return {"model": model, "pipe": pipe, "serve_ms": t}
+
+
+def baseline_train(name, cfg, model, steps: int, bsz: int, zero_counts, counts,
+                   card: str) -> dict:
+    """``steps`` bf16 train steps of ``model``'s weights at ``bsz`` on one
+    fixed batch with synthetic banks: no kernel launch, losses finite and
+    falling; ms per step (after the first), samples/s and peak memory."""
+    from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = copy.deepcopy(cfg)
+    cfg["bsz_train"] = bsz
+    tmodel = build_model(cfg, train=True)
+    tmodel.load_state_dict(model.state_dict())
+    state = create_train_state(tmodel, cfg, steps_per_epoch=100)
+    step = make_train_step(tmodel, cfg, synthetic_banks(cfg, seed=32))
+    gw = torch.Generator(device="cuda").manual_seed(33)
+    x_i = clip_waves(bsz, cfg.fs, seed=36)           # a music-like clip each
+    x_j = x_i.clone()
+    losses = []
+    zero_counts()
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+        losses.append(step(state, x_i, x_j, gw)["loss"].item())
+    ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    got = counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{name} train bf16 bsz_train={bsz}: losses {losses}; {ms:.3f} ms a step, "
+          f"{bsz / ms * 1e3:.1f} samples/s, peak memory {peak:.2f} GB "
+          f"(max_memory_allocated); launches {got} [{card}]", flush=True)
+    print_profile(f"{name} train step bf16 bsz_train={bsz} profile", ms,
+                  lambda: step(state, x_i, x_j, gw), card)
+    check(not any(got.values()), f"{name} training launched a kernel of the port")
+    check(all(np.isfinite(losses)), f"{name}: a train loss is not finite")
+    check(losses[-1] < losses[0], f"{name}: train losses do not fall: {losses}")
+    return {"step_ms": ms, "peak_gb": peak}
+
+
+def baseline_cli(work: str, zero_counts, counts, card: str) -> None:
+    """The baselines' entry points on phase 9's wav corpus under ``work``:
+    baseline_train (AST, config/ast.yaml, one epoch with validation),
+    baseline_test_fp --small_test --model tc10 (its DB rows each nearest
+    its own fingerprint_track row in the frozen split's order), and
+    generate_main against fingerprint_track. No kernel launch."""
+    import yaml
+
+    from grafp_tpu_torch.cli import baseline_test_fp, baseline_train, generate_main
+    from grafp_tpu_torch.core import load_config
+    from grafp_tpu_torch.data.dataset import FingerprintDataset
+    from grafp_tpu_torch.fp import FingerprintPipeline
+    from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.retrieval.memmap_io import load_memmap_data
+    from grafp_tpu_torch.train.checkpoint import load_ckp
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    dirs = {name: os.path.join(work, name) for name in CLI_CORPUS}
+    cfg = load_config(os.path.join(repo, "config", "ast.yaml"))
+    cfg["train_dir"], cfg["val_dir"] = dirs["train"], dirs["val"]
+    cfg["noise_dir"], cfg["ir_dir"] = dirs["noise"], dirs["ir"]
+    cfg["train_sz"], cfg["val_sz"] = CLI_CORPUS["train"][0], CLI_CORPUS["val"][0]
+    home = os.path.join(work, "baselines")
+    os.makedirs(os.path.join(home, "data"))
+    cfg.save(os.path.join(home, "ast.yaml"))
+    with open(os.path.join(home, "test_config.yaml"), "w") as f:
+        yaml.safe_dump({"tc10": ["current"]}, f)
+    log = os.path.join(home, "cli.log")
+    cwd = os.getcwd()
+    os.chdir(home)
+    try:
+        zero_counts()
+        t = time.perf_counter()
+        h = run_cli(baseline_train.main, ["--config", "ast.yaml", "--ckp", "tc10",
+                                          "--epochs", "1", "--validate_every", "1"], log)
+        t_train = time.perf_counter() - t
+        hr, = h["hit_rates"]
+        print(f"baselines cli baseline_train (AST): 1 epoch ({CLI_CORPUS['train'][0]} tracks, "
+              f"bsz_train {cfg['bsz_train']}) loss {h['loss']}, epoch {h['epoch_seconds'][0]:.3f} s, "
+              f"with validation and checkpoints {t_train:.3f} s; hit rates "
+              + json.dumps(np.round(hr, 4).tolist()) + f" [{card}]", flush=True)
+        check(np.isfinite(h["loss"]).all() and hr.shape == (4, 6)
+              and bool(((hr >= 0) & (hr <= 100)).all()), "baseline_train's run is malformed")
+        ds = FingerprintDataset(cfg, dirs["val"], train=False)
+        tracks = [ds[i] for i in range(len(ds))]
+        frozen = np.random.RandomState(0).permutation(len(ds))
+        np.save(os.path.join("data", "val_indices.npy"), frozen)
+        n_query = int(cfg["n_query"])
+        t = time.perf_counter()
+        res = run_cli(baseline_test_fp.main, [
+            "--config", "ast.yaml", "--test_config", "test_config.yaml", "--test_dir",
+            dirs["val"], "--n_query_db", str(n_query), "--small_test", "--model", "tc10"], log)
+        (fp_dir, hit_rates), = res.values()
+        print(f"baselines cli baseline_test_fp --small_test --model tc10: "
+              f"{time.perf_counter() - t:.3f} s; hit rates "
+              + json.dumps(np.round(hit_rates, 4).tolist()) + f" [{card}]", flush=True)
+        tc10 = baseline_test_fp.resolved_config("ast.yaml", "tc10")
+        check((tc10["offset"], tc10["overlap"]) == (0.05, 0.9), "tc10's preset")
+        model = build_model(cfg)
+        model.load_state_dict(load_ckp("checkpoint/model_tc10_current.pth")["state_dict"])
+        by_track = [FingerprintPipeline(model, tc10).fingerprint_track(w) for w in tracks]
+        n_db = len(ds) - n_query
+        for name, ids in (("dummy_db", frozen[:n_db]), ("db", frozen[n_db:])):
+            rows = np.array(load_memmap_data(fp_dir, name, display=False)[0])
+            hold_rows(f"baselines cli test_fp {name}.mm vs fingerprint_track (tc10) of the "
+                      f"frozen split's tracks in its order", rows,
+                      np.concatenate([by_track[i] for i in ids]))
+        t = time.perf_counter()
+        fp = run_cli(generate_main.main, [
+            "--config", "ast.yaml", "--test_dir", dirs["val"], "--ckp",
+            "checkpoint/model_tc10_current.pth", "--output_dir", "gen"], log)
+        secs = time.perf_counter() - t
+        print(f"baselines cli generate (AST): {fp.shape} in {secs:.3f} s = "
+              f"{len(fp) / secs:.1f} fp/s from wav files [{card}]", flush=True)
+        pipe = FingerprintPipeline(model, cfg)
+        hold_rows("baselines cli generate vs fingerprint_track",
+                  fp, np.concatenate([pipe.fingerprint_track(w) for w in tracks]))
+        got = counts()
+        check(not any(got.values()), f"the baselines' entry points launched a kernel: {got}")
+    finally:
+        os.chdir(cwd)
+
+
+def baselines_phase(work: str, zero_counts, counts, card: str) -> None:
+    """Phase 10: the AST (config/ast.yaml) and NAFP (Config(arch='nafp',
+    n_mels=256): the repo has no NAFP config) through serving and training
+    at full width in bf16, then the baselines' entry points on phase 9's
+    corpus. Every step counts no kernel launch: no TPU kernel lies on these
+    paths. Every check raises."""
+    from grafp_tpu_torch.core import Config, load_config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    ast_cfg = load_config(os.path.join(repo, "config", "ast.yaml"))
+    nafp_cfg = Config(arch="nafp", n_mels=256, compute_dtype="bfloat16")
+    check(ast_cfg["compute_dtype"] == "bfloat16", "config/ast.yaml serves in bf16")
+    waves = clip_waves(B, ast_cfg.fs, seed=34)
+    for name, cfg, steps, bsz in (("AST", ast_cfg, AST_TRAIN_STEPS, int(ast_cfg["bsz_train"])),
+                                  ("NAFP", nafp_cfg, NAFP_TRAIN_STEPS, NAFP_BSZ)):
+        served = baseline_serving(name, cfg, waves, zero_counts, counts, card)
+        if name == "AST":
+            wave = music_like_tracks(1, 10, 10, cfg.fs, seed=35)[0]
+            zero_counts()
+            zt = served["pipe"].fingerprint_track(wave)
+            zs = served["pipe"].embed(served["pipe"].segments_for(wave)).cpu().numpy()
+            check(zt.shape == (18, cfg["d"]) and not any(counts().values()),
+                  f"AST track fingerprints {zt.shape}")
+            hold_rows("AST fingerprint_track vs embed(segments_for)", zt, zs)
+        baseline_train(name, cfg, served["model"], steps, bsz, zero_counts, counts, card)
+        del served
+        torch.cuda.empty_cache()
+    baseline_cli(work, zero_counts, counts, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1536,9 +1780,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         cli = cli_phase(model16.state_dict(), zero_counts, counts, card, work, t_step,
                         build_fps)
-    for name in wrappers:
-        launches[name]["cli"] = cli.get(name, 0)
-    print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+        for name in wrappers:
+            launches[name]["cli"] = cli.get(name, 0)
+        print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+        del model16, pipe16, fpipe16
+        torch.cuda.empty_cache()
+
+        # 10. the baseline encoders, on phase 9's corpus
+        print(f"phase 10 at {time.perf_counter() - t_all:.1f} s", flush=True)
+        t10 = time.perf_counter()
+        baselines_phase(work, zero_counts, counts, card)
+        for name in wrappers:
+            launches[name]["baselines"] = 0           # each step checked none
+        print(f"phase 10 took {time.perf_counter() - t10:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     sources = {"mrconv_concat": ("mrconv_concat.cu", "grafp_tpu/ops/pallas_knn.py:376"),

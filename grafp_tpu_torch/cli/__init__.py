@@ -1,2 +1,4 @@
 """The user's entry points (port of ``grafp_tpu.cli``): train, test_fp and
-generate, each run as ``python -m grafp_tpu_torch.cli.<name>``."""
+generate, and the baseline encoders' drivers baseline_train and
+baseline_test_fp (the JAX package's ``baselines/``), each run as
+``python -m grafp_tpu_torch.cli.<name>``."""

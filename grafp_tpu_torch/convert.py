@@ -11,7 +11,10 @@ that both packages compute the same function. Layout changes:
 * ``down{i}/conv/kernel`` (3, I, O) -> (O, I, 3);
 * ``gconv/GroupedPointwiseConv_0/kernel`` keeps its (g, I/g, O/g) layout;
 * BatchNorm {scale, bias} + batch_stats {mean, var} -> {weight, bias,
-  running_mean, running_var}.
+  running_mean, running_var};
+* LayerNorm ``scale`` -> ``weight`` (the AST's, (D,)); NAFP's full-shape
+  LayerNorm {scale, bias} (H, W, C) -> (C, H, W);
+* the AST's ``cls_token`` and ``pos_embed`` keep their names and layout.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ def _port_entry(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray
         mods.pop()
     if mods and mods[-1] == "GroupedPointwiseConv_0":
         mods[-1] = "conv"
+    elif leaf in ("scale", "bias") and arr.ndim == 3:     # (H, W, C) -> (C, H, W)
+        arr = arr.transpose(2, 0, 1)
     elif leaf == "kernel":
         if arr.ndim == 4:                                  # HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1)
@@ -56,7 +61,7 @@ def _port_entry(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray
             arr = arr.transpose(2, 1, 0)
         elif arr.ndim == 2:                                # (I, O) -> (O, I)
             arr = arr.T
-    name = {"kernel": "weight"}.get(leaf, leaf)
+    name = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
     return ".".join(mods + [name]), arr
 
 
@@ -66,12 +71,15 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
     tensors: the port keeps every parameter and statistic in f32 and casts
     to the compute dtype at use, as flax does, so one tree serves the
     serving and the training model. Raises KeyError on a missing or extra
-    key and ValueError on a shape mismatch, against
-    ``model.state_dict()``."""
+    key, or on two leaves that map to one key, and ValueError on a shape
+    mismatch, against ``model.state_dict()``."""
     leaves = {**_flatten(params), **_flatten(batch_stats)}
     out: Dict[str, torch.Tensor] = {}
     for path, arr in leaves.items():
         key, arr = _port_entry(path, arr)
+        if key in out:
+            raise KeyError(f"state_dict_from_jax: two leaves map to {key}, the "
+                           f"second {'/'.join(path)}")
         out[key] = torch.tensor(np.asarray(arr, np.float32))
     want = model.state_dict()
     missing = sorted(set(want) - set(out))

@@ -2,7 +2,8 @@
 ``grafp_tpu.fp.builder``; reference test_fp.py:87-158, generate.py:34-57).
 
 The pipeline serves through a BatchNorm-folded copy of the model
-(``models/fold_bn.py``) on the card. Track lengths are bucketed as in the
+(``models/fold_bn.py``) on the card, of any arch: the baselines, which
+have no BatchNorm, serve as they are. Track lengths are bucketed as in the
 reference pipeline: the true track is reflect-padded with its own
 samples, zero-filled up to the next multiple of ``bucket_s`` seconds, and
 only the reference-defined segments are kept, so every fingerprint equals

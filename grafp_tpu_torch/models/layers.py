@@ -66,6 +66,21 @@ def cast(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> Optional[to
     return None if t is None else t.to(dtype or torch.float32)
 
 
+def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``conv`` (f32 master weights) as flax's ``nn.Conv(dtype=dtype)``
+    computes it: input and weight cast to the compute dtype, the product
+    returned in it, then the bias added in it. On the CPU a bf16 product
+    runs as an f32 convolution of the bf16 values, rounded once (bf16
+    products are exact in f32): PyTorch 2.13's CPU bf16 convolution
+    returned NaN at random for NAFP's stage-4 shape."""
+    x, w, b = cast(x, dtype), cast(conv.weight, dtype), cast(conv.bias, dtype)
+    if x.dtype == torch.float32 or x.is_cuda:
+        return F.conv2d(x, w, b, stride=conv.stride, padding=conv.padding)
+    y = F.conv2d(x.float(), w.float(), None, stride=conv.stride,
+                 padding=conv.padding).to(x.dtype)
+    return y if b is None else y + b[:, None, None]
+
+
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(..., i) @ (i, o) with an f32 result. Operands of one dtype; a bf16
     product accumulates in f32 without rounding its result to bf16. On

@@ -1,6 +1,8 @@
-"""SimCLR wrapper: spectrogram -> PeakEmbed -> GraphEncoder -> projector
--> L2-normalised 128-d fingerprint z (port of ``grafp_tpu.models.simclr``;
-eval and train modes)."""
+"""SimCLR wrapper: spectrogram -> encoder -> projector -> L2-normalised
+128-d fingerprint z (port of ``grafp_tpu.models.simclr``; eval and train
+modes). arch 'grafp' puts PeakEmbed ahead of the GraphEncoder; the
+baselines 'ast' (``models/ast.py``) and 'nafp' (``models/nafp.py``) take
+the spectrogram directly."""
 
 from __future__ import annotations
 
@@ -11,8 +13,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from grafp_tpu_torch.core.device import resolve_device
+from grafp_tpu_torch.models.ast import ASTEncoder
 from grafp_tpu_torch.models.gnn import GraphEncoder
 from grafp_tpu_torch.models.layers import PointwiseConv, init_parameters
+from grafp_tpu_torch.models.nafp import NAFPEncoder
 from grafp_tpu_torch.models.peak_embed import PeakEmbed
 from grafp_tpu_torch.ops.knn import l2_normalize
 from grafp_tpu_torch.ops.mrconv_concat import MAX_K, MAX_KN
@@ -34,21 +38,22 @@ class Projector(nn.Module):
 
 
 class SimCLRModel(nn.Module):
-    """arch='grafp': (B, n_mels, n_frames) spectrogram -> (h, z)."""
+    """(B, n_mels, n_frames) spectrogram -> (h, z). PeakEmbed runs only
+    for arch 'grafp'."""
 
-    def __init__(self, encoder: GraphEncoder, n_filters: int = 8,
+    def __init__(self, encoder: nn.Module, n_filters: int = 8,
                  blur_kernel: Tuple[int, int] = (7, 7), peak_stride: int = 2,
                  h: int = 1024, d: int = 128, u: int = 32,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, arch: str = "grafp"):
         super().__init__()
-        self.peak = PeakEmbed(n_filters, tuple(blur_kernel), peak_stride,
-                              dtype=dtype)
+        self.peak = (PeakEmbed(n_filters, tuple(blur_kernel), peak_stride, dtype=dtype)
+                     if arch == "grafp" else None)
         self.encoder = encoder
         self.projector = Projector(h, d, u, dtype=dtype)
 
     def forward(self, spec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (h, z): encoder embedding and fingerprint."""
-        h = self.encoder(self.peak(spec))
+        h = self.encoder(spec if self.peak is None else self.peak(spec))
         z = l2_normalize(self.projector(h), dim=-1)
         return h, z
 
@@ -72,26 +77,28 @@ def _check_kernel_shapes(cfg) -> None:
 def build_model(cfg, generator: Optional[torch.Generator] = None,
                 device: Optional[Union[str, torch.device]] = None,
                 train: bool = False, fuse_serving: str = "auto") -> SimCLRModel:
-    """The flagship model from a Config, initialised from ``generator``
+    """The model of ``cfg["arch"]`` ('grafp', 'ast', 'nafp') from a
+    Config, initialised from ``generator``
     (seed 0 when None) with the reference's torch initialisers, on
     ``device`` (None = the CUDA card), in eval mode, or in train mode
     (BatchNorm on batch statistics) when ``train``. Parameters are f32
     in both; ``compute_dtype`` sets the dtype they are cast to at use.
     ``fuse_serving`` goes to every Grapher ('auto': the fused block on the
     card, the unfused path on the CPU). On a CUDA device a Config whose
-    k or node count the kernels do not take is refused here."""
+    grafp k or node count the kernels do not take is refused here (the
+    baselines launch none of them)."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
+    arch = cfg["arch"]
+    if arch not in ("grafp", "ast", "nafp"):
+        raise NotImplementedError(f"arch {arch}")
+    if arch == "grafp" and dev.type == "cuda":
         _check_kernel_shapes(cfg)
-    if cfg["arch"] != "grafp":
-        raise NotImplementedError(
-            f"arch {cfg['arch']!r}: the port has arch='grafp' only")
     quant = str(cfg["serve_quant"] or "none").lower()
     if quant != "none":
         raise NotImplementedError(
             f"serve_quant {quant!r}: int8 serving is a later slice of the port")
     strategy = cfg["knn_strategy"]
-    if strategy not in ("auto", "pallas"):
+    if arch == "grafp" and strategy not in ("auto", "pallas"):
         # the JAX Grapher runs the pair-layout MRConv for these
         # (grafp_tpu/models/gnn.py:262-287); the port's Grapher always
         # runs the kernel
@@ -102,15 +109,20 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
     if name not in _DTYPES:
         raise ValueError(f"compute_dtype must be float32|bfloat16, got {name!r}")
     dtype = _DTYPES[name] if name != "float32" else None
-    encoder = GraphEncoder(
-        in_features=cfg["n_filters"], size=cfg["size"], k=int(cfg["k"]),
-        emb_dims=cfg["h"], dilation_schedule=cfg["dilation_schedule"],
-        drop_path_schedule=cfg["drop_path_schedule"], dtype=dtype,
-        fuse_serving=fuse_serving)
+    if arch == "grafp":
+        encoder, h = GraphEncoder(
+            in_features=cfg["n_filters"], size=cfg["size"], k=int(cfg["k"]),
+            emb_dims=cfg["h"], dilation_schedule=cfg["dilation_schedule"],
+            drop_path_schedule=cfg["drop_path_schedule"], dtype=dtype,
+            fuse_serving=fuse_serving), cfg["h"]
+    else:
+        # the JAX projector takes the encoder's width, whatever cfg['h'] says
+        encoder = (ASTEncoder if arch == "ast" else NAFPEncoder)(dtype=dtype)
+        h = encoder.out_features
     model = SimCLRModel(encoder, n_filters=cfg["n_filters"],
                         blur_kernel=tuple(cfg["blur_kernel"]),
-                        peak_stride=cfg["peak_stride"], h=cfg["h"],
-                        d=cfg["d"], u=cfg["u"], dtype=dtype)
+                        peak_stride=cfg["peak_stride"], h=h,
+                        d=cfg["d"], u=cfg["u"], dtype=dtype, arch=arch)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     init_parameters(model, g)
     return model.to(dev).train(train)

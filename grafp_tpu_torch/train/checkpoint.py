@@ -12,15 +12,19 @@ that tells it from a reference ``.pth``. The JAX package keeps the same
 payload in Orbax directories; ``scripts/torch_port_orbax_to_pth.py``
 converts one into this format (weights only, ``optimizer`` None).
 
-Reference import (arch 'grafp', test_fp.py:290-297's contract): strip
+Reference import (test_fp.py:290-297's contract), for the three archs,
+told apart by the keys as the JAX package does: ``encoder.blocks.*`` is an
+AST (ast_encoder.py:278-415), ``encoder.conv_layers.*`` a NAFP
+(neural_audio_fp.py:12-46), anything else a GraFPrint model. Strip
 DataParallel ``module.`` prefixes, drop the dead ``relative_pos`` buffers
 (torch_vertex.py:164-172, never read in forward) and
 ``num_batches_tracked``, map the torch conv/linear layouts onto the JAX
-package's flax tree with this module's own numpy copy of its mapping, then
-onto the port's state_dict with ``convert.state_dict_from_jax``. The
+package's flax tree with this module's own numpy copy of its mappings,
+then onto the port's state_dict with ``convert.state_dict_from_jax``. The
 reference's Downsample 3x3 convs keep only their centre kernel column (on
 the width-1 node layout the other columns multiply padding); the grouped
-MRConv conv keeps its (g, I/g, O/g) layout. A key the mapping does not
+MRConv conv keeps its (g, I/g, O/g) layout; NAFP's LayerNorms go (C, H, W)
+-> (H, W, C) in the tree and back in the port. A key the mapping does not
 read, a key it misses, or a wrong shape raises.
 """
 
@@ -240,17 +244,92 @@ def torch_state_dict_to_tree(sd: Mapping[str, np.ndarray]) -> Tuple[Dict, Dict]:
     # head + projector (graph_encoder.py:156, simclr.py:24-27)
     P[("encoder", "proj", "Dense_0", "kernel")] = _pointwise_to_dense(sd["encoder.proj.weight"])
     P[("encoder", "proj", "Dense_0", "bias")] = sd["encoder.proj.bias"]
-    P[("projector", "fc1", "kernel")] = np.transpose(sd["projector.0.weight"])
-    P[("projector", "fc1", "bias")] = sd["projector.0.bias"]
-    P[("projector", "fc2", "kernel")] = np.transpose(sd["projector.2.weight"])
-    P[("projector", "fc2", "bias")] = sd["projector.2.bias"]
+    _projector(sd, P)
+    return _finish(sd, "grafp", P, S)
 
+
+def _finish(sd: "_Reads", arch: str, P: Dict, S: Dict) -> Tuple[Dict, Dict]:
+    """Raise on a key the ``arch`` mapping did not read; else the f32
+    (params, batch_stats) trees."""
     unread = sorted(set(sd) - sd.read)
     if unread:
-        raise KeyError(f"torch import: {len(unread)} keys the grafp mapping does "
+        raise KeyError(f"torch import: {len(unread)} keys the {arch} mapping does "
                        f"not read: {unread[:8]}")
     to_f32 = lambda t: {k: np.asarray(v, np.float32) for k, v in t.items()}  # noqa: E731
     return _unflatten(to_f32(P)), _unflatten(to_f32(S))
+
+
+def _projector(sd: Mapping, P: Dict) -> None:
+    """The SimCLR projector Linear(h, d*u) -> ELU -> Linear(d*u, d)
+    (simclr.py:24-27)."""
+    for i, name in ((0, "fc1"), (2, "fc2")):
+        P[("projector", name, "kernel")] = np.transpose(sd[f"projector.{i}.weight"])
+        P[("projector", name, "bias")] = sd[f"projector.{i}.bias"]
+
+
+def torch_ast_state_dict_to_tree(sd: Mapping[str, np.ndarray]) -> Tuple[Dict, Dict]:
+    """A reference SimCLR(ASTEncoder) state_dict -> (params, {}) with the
+    JAX package's keys and layouts (its
+    ``checkpoint.torch_ast_state_dict_to_tree``)."""
+    sd = _Reads({k: np.asarray(v) for k, v in _strip_module_prefix(dict(sd)).items()})
+    P: Dict[Tuple[str, ...], np.ndarray] = {}
+    e = ("encoder",)
+    P[e + ("patch", "kernel")] = _conv2d_to_hwio(sd["encoder.patch_embed.projection.weight"])
+    P[e + ("patch", "bias")] = sd["encoder.patch_embed.projection.bias"]
+    P[e + ("cls_token",)] = sd["encoder.cls_token"]
+    P[e + ("pos_embed",)] = sd["encoder.pos_embed"]
+    depth = max(int(k.split(".")[2]) for k in sd if k.startswith("encoder.blocks.")) + 1
+    for i in range(depth):
+        src, blk = f"encoder.blocks.{i}", e + (f"block{i}",)
+        for ln in ("norm1", "norm2"):
+            P[blk + (ln, "scale")] = sd[f"{src}.{ln}.weight"]
+            P[blk + (ln, "bias")] = sd[f"{src}.{ln}.bias"]
+        for lin, dst in (("attn.qkv", "qkv"), ("attn.proj", "proj"),
+                         ("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2")):
+            P[blk + (dst, "kernel")] = np.transpose(sd[f"{src}.{lin}.weight"])
+            P[blk + (dst, "bias")] = sd[f"{src}.{lin}.bias"]
+    P[e + ("norm", "scale")] = sd["encoder.norm.weight"]
+    P[e + ("norm", "bias")] = sd["encoder.norm.bias"]
+    P[e + ("head", "kernel")] = np.transpose(sd["encoder.head.weight"])
+    P[e + ("head", "bias")] = sd["encoder.head.bias"]
+    _projector(sd, P)
+    return _finish(sd, "ast", P, {})
+
+
+def torch_nafp_state_dict_to_tree(sd: Mapping[str, np.ndarray]) -> Tuple[Dict, Dict]:
+    """A reference SimCLR(NAFPEncoder) state_dict (Sequential indices 6i
+    conv a, 6i+1 LayerNorm a, 6i+3 conv b, 6i+4 LayerNorm b) -> (params,
+    {}) with the JAX package's keys and layouts (its
+    ``checkpoint.torch_nafp_state_dict_to_tree``)."""
+    sd = _Reads({k: np.asarray(v) for k, v in _strip_module_prefix(dict(sd)).items()})
+    P: Dict[Tuple[str, ...], np.ndarray] = {}
+    e, src = ("encoder",), "encoder.conv_layers"
+    n_stages = sum(1 for k in sd if k.startswith(src + ".") and k.endswith(".weight")
+                   and dict.__getitem__(sd, k).ndim == 4) // 2
+    for i in range(n_stages):
+        for half, conv, ln in (("a", 6 * i, 6 * i + 1), ("b", 6 * i + 3, 6 * i + 4)):
+            P[e + (f"conv{i}{half}", "kernel")] = _conv2d_to_hwio(sd[f"{src}.{conv}.weight"])
+            P[e + (f"conv{i}{half}", "bias")] = sd[f"{src}.{conv}.bias"]
+            for leaf, name in (("scale", "weight"), ("bias", "bias")):
+                # torch (C, H, W) -> the tree's (H, W, C)
+                P[e + (f"ln{i}{half}", leaf)] = np.transpose(sd[f"{src}.{ln}.{name}"], (1, 2, 0))
+    _projector(sd, P)
+    return _finish(sd, "nafp", P, {})
+
+
+def checkpoint_arch(keys: Iterable[str]) -> str:
+    """The arch of a reference state_dict, from its keys (the JAX
+    package's ``import_torch_checkpoint``)."""
+    keys = _strip_module_prefix(dict.fromkeys(keys))
+    if any(k.startswith("encoder.blocks.") for k in keys):
+        return "ast"
+    if any(k.startswith("encoder.conv_layers.") for k in keys):
+        return "nafp"
+    return "grafp"
+
+
+_TO_TREE = {"grafp": torch_state_dict_to_tree, "ast": torch_ast_state_dict_to_tree,
+            "nafp": torch_nafp_state_dict_to_tree}
 
 
 def reference_state_dict(payload) -> Dict[str, np.ndarray]:
@@ -263,16 +342,10 @@ def reference_state_dict(payload) -> Dict[str, np.ndarray]:
 
 def import_torch_checkpoint(payload, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The port ``model``'s state_dict holding a reference ``.pth``
-    payload's weights (arch 'grafp'). ast and nafp checkpoints raise
-    NotImplementedError: their encoders are not ported yet (ROADMAP A10)."""
+    payload's weights, arch 'grafp', 'ast' or 'nafp' (told by the keys);
+    a checkpoint of another arch than ``model``'s fails the key checks."""
     sd = reference_state_dict(payload)
-    keys = set(_strip_module_prefix(sd))
-    for prefix, arch in (("encoder.blocks.", "ast"), ("encoder.conv_layers.", "nafp")):
-        if any(k.startswith(prefix) for k in keys):
-            raise NotImplementedError(
-                f"an {arch} checkpoint: the port has arch='grafp' only; the ast "
-                "and nafp encoders and their importers are ROADMAP A10")
-    params, batch_stats = torch_state_dict_to_tree(sd)
+    params, batch_stats = _TO_TREE[checkpoint_arch(sd)](sd)
     return state_dict_from_jax(params, batch_stats, model)
 
 

@@ -36,11 +36,22 @@ from grafp_tpu.utils import helpers as jh  # noqa: E402
 from grafp_tpu_torch.cli.test_fp_main import create_table, load_any_checkpoint  # noqa: E402
 from grafp_tpu_torch.convert import state_dict_from_jax  # noqa: E402
 from grafp_tpu_torch.core import Config  # noqa: E402
+from grafp_tpu_torch.core import load_config as ck_load_config  # noqa: E402
 from grafp_tpu_torch.models import build_model  # noqa: E402
 from grafp_tpu_torch.train import create_train_state, make_train_step  # noqa: E402
 from grafp_tpu_torch.train import checkpoint as ck  # noqa: E402
 from grafp_tpu_torch.utils import helpers as th  # noqa: E402
+from grafp_tpu.train.checkpoint import (  # noqa: E402
+    torch_ast_state_dict_to_tree as j_ast_to_tree,
+)
+from grafp_tpu.train.checkpoint import (  # noqa: E402
+    torch_nafp_state_dict_to_tree as j_nafp_to_tree,
+)
+from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram  # noqa: E402
+from grafp_tpu_torch.models.nafp import CHANNELS  # noqa: E402
+from tests.fixtures import _melody  # noqa: E402
 from tests.test_torch_import import _build_torch_model, _randomize  # noqa: E402
+from tests.test_torch_import_ast import _build_torch_ast  # noqa: E402
 from tests.torch_port_util import (  # noqa: E402
     calibrate,
     calibrated_jax_variables,
@@ -51,6 +62,7 @@ from tests.torch_port_util import (  # noqa: E402
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+AST_YAML = os.path.join(REPO, "config", "ast.yaml")
 TINY = dict(fs=1000, win_len=256, hop_len=128, n_fft=256, n_mels=16, n_frames=8)
 
 
@@ -143,8 +155,10 @@ def _corrupt(sd, how):
     ("missing", KeyError, "running_var"),
     ("extra", KeyError, "does not read"),
     ("shape", ValueError, "encoder.proj.weight"),
-    ("ast", NotImplementedError, "ROADMAP A10"),
-    ("nafp", NotImplementedError, "ROADMAP A10"),
+    # one stray key of another arch makes the file that arch's, whose
+    # mapping then misses its keys or leaves the grafp ones unread
+    ("ast", KeyError, "patch_embed"),
+    ("nafp", KeyError, "nafp mapping does not read"),
 ])
 def test_pth_import_refuses_what_it_cannot_map(replica, how, exc, match):
     _, sd = replica
@@ -284,3 +298,130 @@ def test_query_length_conversions_equal_jax():
         for n in (1, 3, 19, 101):
             assert (th.seconds_from_query_len(n, overlap, 1.0)
                     == jh.seconds_from_query_len(n, overlap, 1.0))
+
+
+# --- the baselines' reference .pth ----------------------------------------
+
+def _build_torch_nafp():
+    """A torch replica of the reference SimCLR(NAFPEncoder) with its keys:
+    ``encoder.conv_layers`` a Sequential of conv a (6i), LayerNorm([C, H,
+    W]) (6i + 1), ReLU, conv b (6i + 3), LayerNorm (6i + 4), ReLU per stage
+    (neural_audio_fp.py:12-46), and the projector."""
+    nn = torch.nn
+    layers, c_in, h, w = [], 1, 256, 32
+    for ch in CHANNELS:
+        w = (w - 1) // 2 + 1
+        layers += [nn.Conv2d(c_in, ch, (1, 3), stride=(1, 2), padding=(0, 1)),
+                   nn.LayerNorm([ch, h, w]), nn.ReLU()]
+        h = (h - 1) // 2 + 1
+        layers += [nn.Conv2d(ch, ch, (3, 1), stride=(2, 1), padding=(1, 0)),
+                   nn.LayerNorm([ch, h, w]), nn.ReLU()]
+        c_in = ch
+    model = nn.Module()
+    model.encoder = nn.Module()
+    model.encoder.conv_layers = nn.Sequential(*layers)
+    model.projector = nn.Sequential(nn.Linear(1024, 4096), nn.ELU(), nn.Linear(4096, 128))
+
+    def forward(spec):                       # (B, 256, 32)
+        h = model.encoder.conv_layers(spec[:, None]).flatten(1)
+        return h, torch.nn.functional.normalize(model.projector(h), dim=-1)
+
+    model.fwd = forward
+    return model
+
+
+BASELINES = {"ast": (_build_torch_ast, j_ast_to_tree, AST_YAML),
+             "nafp": (_build_torch_nafp, j_nafp_to_tree, None)}
+
+
+def _baseline_cfg(arch):
+    if arch == "ast":
+        cfg = ck_load_config(AST_YAML)
+    else:
+        cfg = Config(arch="nafp", n_mels=256)
+    cfg["compute_dtype"] = "float32"
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def baseline_replicas():
+    """Per arch: the torch replica with random weights as
+    ``calibrate_baseline`` draws them (weights N(0, 1 / fan_in), biases
+    0.1 N(0, 1), LayerNorm weights 1 + 0.1 N(0, 1), cls token and
+    positions 0.02 N(0, 1)) and its state_dict as a reference .pth holds it
+    (DataParallel prefix)."""
+    out = {}
+    for arch, (build, _, _) in BASELINES.items():
+        tm = build()
+        g = torch.Generator().manual_seed(11)
+        with torch.no_grad():
+            for name, p in tm.named_parameters():
+                r = torch.randn(p.shape, generator=g)
+                if name.endswith(("cls_token", "pos_embed")):
+                    p.copy_(0.02 * r)
+                elif p.dim() >= 2:
+                    p.copy_(r / p[0].numel() ** 0.5)
+                else:
+                    p.copy_(0.1 * r)
+            for m in tm.modules():
+                if isinstance(m, torch.nn.LayerNorm):
+                    m.weight.add_(1.0)
+        out[arch] = tm, {"module." + k: v.clone() for k, v in tm.state_dict().items()}
+    return out
+
+
+def _melody_spec(cfg, n, seed):
+    rs = np.random.RandomState(seed)
+    t = np.arange(cfg.fs) / cfg.fs
+    waves = np.stack([_melody(rs, t, cfg.fs) for _ in range(n)]).astype(np.float32)
+    return log_mel_spectrogram(torch.tensor(waves), LogMelConfig.from_config(cfg))
+
+
+@pytest.mark.parametrize("arch", ["ast", "nafp"])
+def test_baseline_pth_import_is_bit_equal_to_the_jax_importer(baseline_replicas, arch,
+                                                              tmp_path):
+    _, sd = baseline_replicas[arch]
+    model = build_model(_baseline_cfg(arch), device="cpu")
+    path = tmp_path / f"model_{arch}_best.pth"
+    _save_reference(path, sd)
+    assert ck.checkpoint_arch(sd) == arch
+    got = load_any_checkpoint(str(path), model)
+    params, stats = BASELINES[arch][1]({k: v.numpy() for k, v in sd.items()})
+    want = state_dict_from_jax(params, stats, model)
+    assert sorted(got) == sorted(want) == sorted(model.state_dict())
+    for key in want:
+        assert got[key].dtype == want[key].dtype == torch.float32, key
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("arch", ["ast", "nafp"])
+def test_port_on_imported_baseline_pth_matches_the_replica(baseline_replicas, arch,
+                                                           tmp_path):
+    """The model tolerances of tests/test_torch_import_ast.py: h within
+    rtol / atol 2e-3, each z row nearest its own replica row at cos >
+    0.9999."""
+    tm, sd = baseline_replicas[arch]
+    cfg = _baseline_cfg(arch)
+    path = tmp_path / f"model_{arch}_best.pth"
+    _save_reference(path, sd)
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(load_any_checkpoint(str(path), model))
+    spec = _melody_spec(cfg, 6, seed=12)
+    with torch.no_grad():
+        th_, tz = tm.fwd(spec)
+        h, z = model(spec)
+    np.testing.assert_allclose(h.numpy(), th_.numpy(), rtol=2e-3, atol=2e-3)
+    hold_rows(f"port on the imported {arch} .pth vs the replica", z, tz, 0.9999)
+
+
+@pytest.mark.parametrize("arch", ["ast", "nafp"])
+def test_baseline_pth_import_refuses_an_unread_key(baseline_replicas, arch):
+    _, sd = baseline_replicas[arch]
+    sd = {**sd, "module.encoder.extra.weight": torch.zeros(3)}
+    model = build_model(_baseline_cfg(arch), device="cpu")
+    with pytest.raises(KeyError, match=f"{arch} mapping does not read"):
+        ck.import_torch_checkpoint({"state_dict": sd}, model)
+    # a checkpoint of another arch than the model's fails the key checks
+    other = build_model(Config(**TINY), device="cpu")
+    with pytest.raises(KeyError, match="missing"):
+        ck.import_torch_checkpoint({"state_dict": baseline_replicas[arch][1]}, other)

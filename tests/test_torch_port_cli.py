@@ -32,7 +32,13 @@ import yaml
 
 torch = pytest.importorskip("torch")
 
-from grafp_tpu_torch.cli import generate_main, test_fp_main, train_main  # noqa: E402
+from grafp_tpu_torch.cli import (  # noqa: E402
+    baseline_test_fp,
+    baseline_train,
+    generate_main,
+    test_fp_main,
+    train_main,
+)
 from grafp_tpu_torch.core import load_config  # noqa: E402
 from grafp_tpu_torch.data.dataset import FingerprintDataset  # noqa: E402
 from grafp_tpu_torch.fp import FingerprintPipeline  # noqa: E402
@@ -296,3 +302,220 @@ def test_entry_points_default_to_the_card(cli):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--config", os.path.join(REPO, "config", "grafp.yaml")])
+
+
+# --- the baseline encoders through the entry points ------------------------
+#
+# The baselines' drivers (python -m grafp_tpu_torch.cli.baseline_train,
+# baseline_test_fp) and generate on a 16 kHz melody corpus at full width:
+# the AST under config/ast.yaml (the drivers' default), NAFP under
+# config/grafp.yaml with n_mels 256 (the repo has no NAFP config), each cut
+# to bsz_train 8 (one step an epoch), 3 + 2 validation tracks, and f32:
+# bf16 rows of the two packages part at cos 0.9999 (model level,
+# tests/test_torch_port_baselines.py), nearer than two rows a hop apart of
+# one track at overlap 0.9. Train 1 epoch with validation, resume to 2
+# against 2 uninterrupted epochs (bit for bit), test_fp --small_test
+# --model tc9 (the preset, offset 0.2 and overlap 0.5, resolved in a
+# temporary directory), generate; the clean DBs and generate's rows against the JAX
+# package's CLIs on the same wav dir and weights (max |d| <= 1e-3, each row
+# nearest its own).
+
+# arch: (config, its changes, seconds per validation track); validation
+# needs more query rows than its longest sequence (19), so the AST's tracks,
+# whose segments hop 0.5 s under config/ast.yaml, are longer
+BASE = {"ast": ("ast.yaml", {}, 6.0),
+        "nafp": ("grafp.yaml", {"arch": "nafp", "n_mels": 256}, 3.0)}
+
+
+@pytest.fixture(scope="module", params=["ast", "nafp"])
+def baseline(request, tmp_path_factory):
+    arch = request.param
+    ws = tmp_path_factory.mktemp(f"ws_{arch}")
+    make_wav_dir(str(ws / "train_audio"), n=8, dur_s=3.0, seed=11)
+    name, extra, val_s = BASE[arch]
+    make_wav_dir(str(ws / "val_audio"), n=5, dur_s=val_s, seed=12)
+    make_wav_dir(str(ws / "noise"), n=3, dur_s=2.0, seed=13, kind="noise")
+    make_wav_dir(str(ws / "ir"), n=2, seed=14, kind="ir")
+    os.makedirs(ws / "data")
+    cfg = load_config(os.path.join(REPO, "config", name))
+    for key, val in {"train_dir": str(ws / "train_audio"), "val_dir": str(ws / "val_audio"),
+                     "noise_dir": str(ws / "noise"), "ir_dir": str(ws / "ir"),
+                     "bsz_train": 8, "train_sz": 8, "val_sz": 5, "n_dummy": 3, "n_query": 2,
+                     "compute_dtype": "float32", **extra}.items():
+        cfg[key] = val
+    cfg.save(str(ws / "base.yaml"))
+    with open(ws / "tc.yaml", "w") as f:
+        yaml.safe_dump({"tc9": ["current"], "tc_29": ["best"]}, f)
+    enc = [] if arch == "ast" else ["--encoder", arch]        # ast: the default
+    # the config that baseline_test_fp hands to test_fp, read while it exists
+    seen, real_test_fp = {}, test_fp_main.main
+
+    def spy(argv, device=None):
+        path = argv[len(argv) - argv[::-1].index("--config")]
+        seen.update(config=path, cfg=load_config(path))
+        return real_test_fp(argv, device=device)
+
+    common = ["--config", "base.yaml", "--seed", "42"] + enc
+    cwd = os.getcwd()
+    os.chdir(ws)
+    try:
+        out = {"arch": arch, "ws": ws, "cfg": cfg, "seen": seen}
+        out["a1"] = baseline_train.main(common + ["--ckp", "tc9", "--epochs", "1",
+                                                  "--validate_every", "1"], device="cpu")
+        out["a1_payload"] = load_ckp("checkpoint/model_tc9_current.pth")
+        out["a2"] = baseline_train.main(common + [
+            "--ckp", "tc9", "--epochs", "2", "--resume", "checkpoint/model_tc9_current.pth"],
+            device="cpu")
+        out["b2"] = baseline_train.main(common + ["--ckp", "one", "--epochs", "2",
+                                                  "--validate_every", "0"], device="cpu")
+        np.save("data/val_audio_indices.npy", np.random.RandomState(0).permutation(5))
+        fp_args = ["--test_config", "tc.yaml", "--test_dir", str(ws / "val_audio"),
+                   "--n_query_db", "2", "--small_test", "--test_ids", "4",
+                   "--query_lens", "2,3"]
+        test_fp_main.main = spy
+        try:
+            (out["fp_dir"], out["hit_rates"]), = baseline_test_fp.main(
+                ["--config", "base.yaml"] + enc + fp_args + ["--model", "tc9"],
+                device="cpu").values()
+        finally:
+            test_fp_main.main = real_test_fp
+        out["gen"] = generate_main.main([
+            "--config", "base.yaml", "--test_dir", str(ws / "val_audio"),
+            "--ckp", "checkpoint/model_tc9_current.pth", "--output_dir", "gen_out"],
+            device="cpu")
+        yield out
+    finally:
+        os.chdir(cwd)
+
+
+@pytest.fixture(scope="module")
+def baseline_jax(baseline):
+    """The JAX package's test_fp (--small_test, the tc9 preset's offset
+    and overlap in a yaml written here: its baselines/test_fp.py would
+    write one into the repo) and generate in the same workspace, on the
+    port's resumed checkpoint saved as an Orbax checkpoint. Their
+    FingerprintPipeline embeds in batches of 32 here, not 256: a row does
+    not depend on its batch (eval mode), and the full-width models would
+    spend most of the time on padding rows."""
+    import jax
+    import jax.numpy as jnp
+
+    from grafp_tpu.cli import generate_main as j_generate_main
+    from grafp_tpu.cli import test_fp_main as j_test_fp_main
+    from grafp_tpu.core.config import load_config as j_load_config
+    from grafp_tpu.fp.builder import FingerprintPipeline as JFingerprintPipeline
+    from grafp_tpu.models import build_model as j_build_model
+    from grafp_tpu.train.checkpoint import save_ckp as j_save_ckp
+
+    ws, cfg = baseline["ws"], baseline["cfg"]
+    cwd = os.getcwd()
+    os.chdir(ws)
+    defaults = JFingerprintPipeline.__init__.__defaults__
+    JFingerprintPipeline.__init__.__defaults__ = (32,) + defaults[1:]
+    try:
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict(load_ckp("checkpoint/model_tc9_current.pth")["state_dict"])
+        jm = j_build_model(j_load_config("base.yaml"))
+        shapes = jax.eval_shape(lambda: jm.init(
+            {"params": jax.random.key(0)}, jnp.zeros((1, cfg.n_mels, cfg.n_frames)), False))
+        params, stats = jax_variables_from_port(model, shapes)
+        j_save_ckp({"epoch": 2, "params": params, "batch_stats": stats}, "j",
+                   str(ws / "checkpoint"), "current")
+        j_generate_main.main([
+            "--config", "base.yaml", "--test_dir", str(ws / "val_audio"),
+            "--ckp", "checkpoint/model_j_current", "--output_dir", "gen_jax"])
+        resolved = baseline_test_fp.resolved_config("base.yaml", "tc9")
+        resolved.save("jax_tc9.yaml")
+        with open("jax_tc.yaml", "w") as f:
+            yaml.safe_dump({"j": ["current"]}, f)
+        j_test_fp_main.main([
+            "--config", "jax_tc9.yaml", "--encoder", baseline["arch"],
+            "--test_config", "jax_tc.yaml", "--test_dir", str(ws / "val_audio"),
+            "--n_query_db", "2", "--small_test", "--test_ids", "4", "--query_lens", "2,3"])
+    finally:
+        JFingerprintPipeline.__init__.__defaults__ = defaults
+        os.chdir(cwd)
+    return (np.load(ws / "gen_jax" / "fingerprints.npy"),
+            ws / "logs" / "store" / "medium" / "model_j_current")
+
+
+def test_baseline_drivers_keep_the_reference_defaults():
+    argv = baseline_train.with_defaults(["--ckp", "x", "--encoder=nafp"])
+    assert argv == ["--ckp", "x", "--encoder=nafp", "--config", "config/ast.yaml",
+                    "--validate_every", "25"]
+    argv = baseline_test_fp.with_defaults(["--model", "tc9"], baseline_test_fp.DEFAULTS)
+    assert argv == ["--model", "tc9", "--encoder", "ast", "--config", "config/ast.yaml"]
+    for model, preset in (("tc9", (0.2, 0.5)), ("tc10", (0.05, 0.9)),
+                          ("tc11", (0.1, 0.8)), ("tc12", (0.125, 0.75))):
+        cfg = baseline_test_fp.resolved_config(os.path.join(REPO, "config", "ast.yaml"), model)
+        assert (cfg["offset"], cfg["overlap"]) == preset and cfg["arch"] == "ast"
+    assert baseline_test_fp.resolved_config(os.path.join(REPO, "config", "ast.yaml"),
+                                            "tc_29") is None
+
+
+def test_baseline_train_writes_checkpoints_and_logs(baseline):
+    ws, a1, arch = baseline["ws"], baseline["a1"], baseline["arch"]
+    assert (ws / f"model_summary_{arch}.txt").exists()
+    assert len(a1["loss"]) == 1 and np.isfinite(a1["loss"]).all()
+    hr, = a1["hit_rates"]                          # validation at epoch 1
+    assert hr.shape == (4, 6) and ((hr >= 0) & (hr <= 100)).all()
+    p = baseline["a1_payload"]
+    assert p["epoch"] == 1 and p["step"] == 1 and p["loss"] == a1["loss"]
+    assert baseline["a2"]["hit_rates"] == [None]   # --validate_every 25
+    assert not any(k.startswith("peak.") for k in p["state_dict"])
+
+
+def test_baseline_resume_is_bit_identical_to_one_run(baseline):
+    ws = baseline["ws"]
+    a = load_ckp(str(ws / "checkpoint" / "model_tc9_current.pth"))
+    b = load_ckp(str(ws / "checkpoint" / "model_one_current.pth"))
+    assert baseline["a1"]["loss"] + baseline["a2"]["loss"] == baseline["b2"]["loss"]
+    assert a["step"] == b["step"] == 2 and sorted(a["state_dict"]) == sorted(b["state_dict"])
+    for key, val in b["state_dict"].items():
+        assert torch.equal(a["state_dict"][key], val), key
+    for i, s in b["optimizer"]["state"].items():
+        for name, val in s.items():
+            assert torch.equal(a["optimizer"]["state"][i][name], val), (i, name)
+
+
+def test_baseline_test_fp_applies_the_preset_outside_the_repo(baseline):
+    """test_fp ran on a config resolved with tc9's offset and overlap in a
+    temporary directory, outside the repo and the working directory, and
+    gone afterwards; its overlap 0.5 sets the segment hop (config/grafp.yaml
+    has 0.9): the db rows are the segments of the 2 query tracks at that
+    hop."""
+    ws, cfg, seen = baseline["ws"], baseline["cfg"], baseline["seen"]
+    path = os.path.realpath(seen["config"])
+    assert (seen["cfg"]["offset"], seen["cfg"]["overlap"]) == (0.2, 0.5)
+    assert seen["cfg"]["arch"] == cfg["arch"] and not os.path.exists(path)
+    for root in (REPO, str(ws)):
+        assert os.path.commonpath([path, os.path.realpath(root)]) != os.path.realpath(root)
+    assert baseline["fp_dir"] == os.path.join("logs", "store", "medium", "model_tc9_current")
+    db = load_memmap_data(str(ws / baseline["fp_dir"]), "db", display=False)[0]
+    hop = int(cfg["n_frames"] * (1 - 0.5))
+    frames = 1 + int(BASE[baseline["arch"]][2] * cfg["fs"]) // int(cfg["hop_len"])
+    assert len(db) == 2 * ((frames - cfg["n_frames"]) // hop + 1)
+    assert baseline["hit_rates"].shape == (4, 2)
+
+
+def test_baseline_generate_equals_the_jax_cli_and_fingerprint_track(baseline, baseline_jax):
+    ws, cfg = baseline["ws"], baseline["cfg"]
+    fp, want = baseline["gen"], baseline_jax[0]
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(load_ckp(str(ws / "checkpoint" / "model_tc9_current.pth"))["state_dict"])
+    pipe = FingerprintPipeline(model, cfg, device="cpu")
+    ds = FingerprintDataset(cfg, str(ws / "val_audio"), train=False)
+    by_track = np.concatenate([pipe.fingerprint_track(ds[i]) for i in range(len(ds))])
+    assert fp.shape == want.shape == by_track.shape
+    for what, ref in (("the JAX package's generate", want), ("fingerprint_track", by_track)):
+        np.testing.assert_allclose(fp, ref, rtol=0, atol=1e-3)
+        hold_rows(f"{baseline['arch']} generate vs {what}", fp, ref)
+
+
+@pytest.mark.parametrize("name", ["dummy_db", "db"])
+def test_baseline_test_fp_clean_dbs_equal_the_jax_cli(baseline, baseline_jax, name):
+    got = load_memmap_data(str(baseline["ws"] / baseline["fp_dir"]), name, display=False)[0]
+    want = load_memmap_data(str(baseline_jax[1]), name, display=False)[0]
+    assert got.shape == want.shape and len(got) > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    hold_rows(f"{baseline['arch']} test_fp {name} vs the JAX package's test_fp", got, want)

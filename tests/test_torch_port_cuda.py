@@ -441,6 +441,53 @@ def test_build_model_refuses_what_the_kernels_do_not_take_on_the_card(card):
     assert build_model(Config(k=9), device="cpu") is not None
 
 
+@pytest.mark.parametrize("arch", ["ast", "nafp"])
+def test_baselines_serve_on_the_card_without_a_kernel(card, arch):
+    """build_model of the baselines on the card (the grafp kernel-shape
+    check does not apply: under config/ast.yaml it would refuse k * N =
+    9600): the bf16 pipeline launches no kernel of the port, and its rows
+    lie nearest the same weights' f32 rows on the CPU, above cos 0.99."""
+    import copy
+    import os
+
+    from grafp_tpu_torch.core import Config, load_config
+    from grafp_tpu_torch.fp import FingerprintPipeline
+    from grafp_tpu_torch.models import build_model
+
+    if arch == "ast":
+        cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "config", "ast.yaml"))
+    else:
+        cfg = Config(arch="nafp", n_mels=256, compute_dtype="bfloat16")
+    assert cfg["compute_dtype"] == "bfloat16"
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0), device=card)
+    with torch.no_grad():
+        for name, p in model.named_parameters():          # spread the rows
+            if name.endswith(("cls_token", "pos_embed")):
+                p.normal_(0.0, 0.02)
+    cfg32 = copy.deepcopy(cfg)
+    cfg32["compute_dtype"] = "float32"
+    ref = build_model(cfg32, device="cpu")
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    g = torch.Generator().manual_seed(1)           # three random partials each
+    t = torch.arange(cfg.fs) / cfg.fs
+    freqs = 80 + 4000 * torch.rand(8, 3, 1, generator=g)
+    waves = (0.1 * torch.sin(2 * torch.pi * freqs * t)).sum(1) + 0.01 * torch.randn(
+        8, cfg.fs, generator=g)
+    wrappers = (mrconv_concat, mrconv_concat_backward, max_neighbors,
+                max_neighbors_backward, grapher_block)
+    before = [w.launches for w in wrappers]
+    z = FingerprintPipeline(model, cfg).fingerprint_waves(waves.to(card)).cpu()
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == before
+    want = FingerprintPipeline(ref, cfg32, device="cpu").fingerprint_waves(waves)
+    cos = (z * want).sum(1) / (z.norm(dim=1) * want.norm(dim=1))
+    other = torch.nn.functional.normalize(z, dim=1) @ torch.nn.functional.normalize(
+        want, dim=1).T
+    other.fill_diagonal_(-2)
+    assert (cos > 0.99).all() and (cos > other.max(1).values).all(), cos
+
+
 def _db_with_ties(rows=5000, d=128, seed=0):
     g = torch.Generator().manual_seed(seed)
     db = torch.nn.functional.normalize(torch.randn(rows, d, generator=g), dim=1)

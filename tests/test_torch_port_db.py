@@ -278,3 +278,42 @@ def test_builder_entry_points_default_to_the_card():
     model = build_model(Config(**TINY), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         tb.FingerprintPipeline(model, Config(**TINY))
+
+
+def test_bf16_row_norms_are_the_jax_packages(pipes):
+    """ROADMAP C4: bf16 fingerprints are not unit-norm in f32. Both
+    packages normalise in bf16 (the norm's square root rounded to bf16,
+    then each component), so the same bf16 rows get bit-equal unit rows
+    from either. Through each package's bf16 pipeline on the same
+    calibrated weights, the rows themselves part (the port folds its
+    BatchNorms, so its products round elsewhere) and their norms with
+    them, but the JAX package's rows miss 1 as far as the port's do:
+    neither norm spread may exceed the other's by half (measured on 32
+    rows: JAX |n - 1| <= 0.003173, mean 0.001381; the port 0.003412, mean
+    0.001329)."""
+    from grafp_tpu.ops.knn import l2_normalize as j_l2_normalize
+    from grafp_tpu_torch.ops.knn import l2_normalize
+
+    jp, _, _ = pipes
+    rows = jnp.asarray(np.random.RandomState(8).randn(64, 128), jnp.bfloat16)
+    want = np.asarray(jax.jit(lambda v: j_l2_normalize(v, axis=-1))(rows).astype(jnp.float32))
+    got = l2_normalize(torch.tensor(np.asarray(rows.astype(jnp.float32))).to(torch.bfloat16))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+    bf16 = dict(TINY, compute_dtype="bfloat16")
+    jp16 = jb.FingerprintPipeline(j_build_model(JConfig(**bf16)), JConfig(**bf16), jp.params,
+                                  jp.batch_stats, batch_size=16, bucket_s=2.0)
+    tp16 = tb.FingerprintPipeline(
+        load_jax_weights(build_model(Config(**bf16), device="cpu"), jp.params, jp.batch_stats),
+        Config(**bf16), batch_size=16, bucket_s=2.0, device="cpu")
+    waves = _waves(3)
+    off = {}
+    for name, pipe in (("jax", jp16), ("port", tp16)):
+        z = np.concatenate([pipe.fingerprint_track(w) for w in waves]).astype(np.float64)
+        off[name] = np.abs(np.linalg.norm(z, axis=1) - 1)
+        print(f"{name} bf16 rows ({len(z)}): |norm - 1| max {off[name].max():.6f} "
+              f"mean {off[name].mean():.6f}")
+    assert off["jax"].max() > 1e-3                     # the JAX package's own rows
+    for stat in (np.max, np.mean):
+        a, b = stat(off["jax"]), stat(off["port"])
+        assert max(a, b) <= 1.5 * min(a, b), (stat.__name__, a, b)

@@ -109,11 +109,15 @@ def test_grapher_outside_the_slice_raises(kwargs):
 
 
 @pytest.mark.parametrize("override", [dict(serve_quant="int8"),
-                                      dict(arch="nafp"),
+                                      # the port has every arch of the JAX
+                                      # package (grafp, ast, nafp) since slice 8
+                                      dict(arch="resnet"),
                                       dict(compute_dtype="float16"),
                                       dict(knn_strategy="onehot"),
                                       dict(knn_strategy="exact"),
-                                      dict(knn_strategy="approx")])
+                                      dict(knn_strategy="approx"),
+                                      dict(arch="ast", serve_quant="int8"),
+                                      dict(arch="nafp", serve_quant="int8_static")])
 def test_build_model_rejects_unported_configs(override):
     with pytest.raises((NotImplementedError, ValueError)):
         build_model(Config(**override), device="cpu")

@@ -134,6 +134,27 @@ def calibrate(model, spec, forward=None, last_bn=("fc2_bn",)) -> None:
             bn.running_var.copy_(var)
 
 
+def calibrate_baseline(model, seed: int = 0) -> None:
+    """The counterpart of ``calibrate`` for the baseline encoders (AST,
+    NAFP; here and in chip_smoke.py): every LayerNorm's affine drawn as
+    ``randomize_jax_variables`` draws a BatchNorm's (scale 1 + 0.1 N(0, 1),
+    bias 0.1 N(0, 1)), and the AST's cls token and positions drawn from
+    0.5 N(0, 1), all from numpy with ``seed``. The initial weights leave
+    cls and positions at zero, and then every clip's cls token starts
+    alike."""
+    rs = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("cls_token", "pos_embed"):
+                draw = 0.02 * rs.randn(*p.shape)
+            elif name.rsplit(".", 2)[-2].startswith(("norm", "ln")):
+                draw = (leaf == "weight") + 0.1 * rs.randn(*p.shape)
+            else:
+                continue
+            p.copy_(torch.as_tensor(draw.astype(np.float32)))
+
+
 def calibrated_jax_variables(model, shapes, spec, seed: int = 0):
     """A flax (params, batch_stats) pair for the JAX tree of ``shapes`` and
     the same weights in the port ``model``: BatchNorm affines and
