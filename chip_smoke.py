@@ -100,11 +100,27 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      9's corpus baseline_train (AST, one epoch with validation),
      baseline_test_fp --small_test --model tc10 (its DB rows each nearest
      its own fingerprint_track row in the frozen split's order) and
-     generate_main with the AST config against fingerprint_track.
+     generate_main with the AST config against fingerprint_track;
+ 11. int8 serving and the rest of the index family: on phase 4's
+     calibrated weights, FingerprintPipeline.fingerprint_waves at B = 128
+     in bf16 under serve_quant int8 and int8_static (calibrated lazily on
+     other clips first), each counting 12 mrconv_concat launches and no
+     grapher_block launch (a quantised Grapher never fuses), its rows held
+     to the unfolded f32 plain path above cos 0.98 (the JAX package's own
+     floor), then fp/s and device busy share beside bf16 unfused and fused;
+     on phase 8's 2^20-row catalogue 'ivfpq-rr' and 'lsh' (train and add
+     seconds, queries/s at k = 20, recall@1 and @10 against exact 'l2'),
+     'l2' and 'ivfpq' with scan_topk='approx' at scan_recall 0.99 and 0.95
+     beside the exact selection on the same index (recall against it at
+     least the target less 0.02), native 'hnsw' on 20,000 rows (build
+     rows/s, queries/s, recall@10); eval_faiss with 'ivfpq-rr' (the clean
+     db rows as queries 100 % top-1), 'lsh' and 'hnsw' (on the built rows
+     only) on phase 8's DBs.
 
 The line before the last is the card (nvidia-smi), the one before it the
 kernels' JSON (launches by path: the DB build's under "db_build", the
-entry points' under "cli", phase 10's under "baselines"); the last line is
+entry points' under "cli", phase 10's under "baselines", phase 11's under
+"serve_int8" and "serve_int8_static"); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -590,12 +606,13 @@ def synthetic_banks(cfg, seed: int):
                                     noise_len=2 * fs, ir_len=2 * fs)
 
 
-def eval_phase(cfg, state_dict, zero_counts, counts, card: str, work: str) -> dict:
+def eval_phase(cfg, state_dict, zero_counts, counts, card: str, work: str):
     """Phase 8: wave -> DB memmaps -> index -> search -> sequence rescoring
     -> hit rates at size t in bf16 with the seeded weights ``state_dict``,
     through the port's entry points on the card. Returns the DB build's
-    launch counts and its first, counted build's fp/s. Every check
-    raises."""
+    launch counts, its first, counted build's fp/s, and the catalogue for
+    phase 11 (dummy rows, db, query, the searched query rows and their exact
+    'l2' ids); the memmaps stay under ``work``. Every check raises."""
     from grafp_tpu_torch.fp.builder import (
         FingerprintPipeline,
         create_db,
@@ -842,7 +859,9 @@ def eval_phase(cfg, state_dict, zero_counts, counts, card: str, work: str) -> di
                   + f" [{card}]", flush=True)
             check(differ == 0, f"rescoring sl={sl}: card and host differ")
         del recon_dev
-    return db_build, n_dummy / t_build
+    catalogue = {"dummy": full_dummy, "db": np.asarray(db), "query": np.asarray(query),
+                 "qrows": qrows, "exact": indexes["l2"][1]}
+    return db_build, n_dummy / t_build, catalogue
 
 
 # --- phase 9: the entry points --------------------------------------------
@@ -1343,6 +1362,187 @@ def baselines_phase(work: str, zero_counts, counts, card: str) -> None:
     baseline_cli(work, zero_counts, counts, card)
 
 
+# --- phase 11: int8 serving and the rest of the index family -------------
+QUANT_FLOOR = 0.98             # int8 rows vs f32 plain, tests/test_quant.py:93,156
+# recall of the approximate selection against exact: the target less the
+# sampling slack of 9,500 queries x 20 neighbours on one catalogue
+APPROX_SLACK = 0.02
+HNSW_ROWS = 20_000             # the native HNSW subset: ~15 s of build on one host core
+
+
+def int8_phase(state_dict, waves, zero_counts, counts, card: str) -> dict:
+    """Phase 11a: serve_quant int8 and int8_static at size t in bf16 with
+    the calibrated weights ``state_dict``, through FingerprintPipeline at
+    B; int8_static calibrates lazily on other clips first. Each run counts
+    12 mrconv_concat launches and no grapher_block launch (a quantised
+    Grapher never fuses), and its rows are held to the unfolded f32 plain
+    path. Then fp/s and the device's busy share of int8, int8_static, bf16
+    unfused and bf16 fused, in turns. Returns the launch counts by path."""
+    from grafp_tpu_torch.core import Config
+    from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram
+    from grafp_tpu_torch.fp import FingerprintPipeline
+    from grafp_tpu_torch.models import build_model
+
+    n_graphers = sum(BLOCKS)
+    cfg32 = Config()
+    model32 = build_model(cfg32, fuse_serving="off")
+    model32.load_state_dict(state_dict)
+    with plain_versions(), torch.no_grad():
+        _, z32p = model32(log_mel_spectrogram(waves, LogMelConfig.from_config(cfg32)))
+    del model32
+    pipes, by_path = {}, {}
+    for serve in ("int8", "int8_static"):
+        cfg = Config(compute_dtype="bfloat16", serve_quant=serve)
+        model = build_model(cfg)
+        model.load_state_dict(state_dict)
+        pipe = FingerprintPipeline(model, cfg)
+        check(pipe._needs_calibration == (serve == "int8_static"),
+              f"{serve}: lazy calibration due {pipe._needs_calibration}")
+        pipe.fingerprint_waves(clip_waves(B, cfg.fs, seed=31))   # warm-up, calibration
+        check(not pipe._needs_calibration, f"{serve}: not calibrated")
+        zero_counts()
+        z = pipe.fingerprint_waves(waves)
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"int8 serving {serve} bf16 B={B}: launches {got}", flush=True)
+        check(got == {**{name: 0 for name in got}, "mrconv_concat": n_graphers},
+              f"{serve}: expected {n_graphers} mrconv_concat launches and no other")
+        by_path[f"serve_{serve}"] = got["mrconv_concat"]
+        check(z.shape == (B, cfg.d) and bool(torch.isfinite(z).all()), f"{serve}: bad z")
+        hold_rows(f"{serve} bf16 (folded) vs f32 plain unfolded", z, z32p, QUANT_FLOOR)
+        pipes[serve] = pipe
+    cfg16 = Config(compute_dtype="bfloat16")
+    for name, fuse in (("bf16 unfused", "off"), ("bf16 fused", "auto")):
+        model = build_model(cfg16, fuse_serving=fuse)
+        model.load_state_dict(state_dict)
+        pipes[name] = FingerprintPipeline(model, cfg16)
+    ms = {name: [] for name in pipes}
+    for _ in range(2):                                        # in turns
+        for name, pipe in pipes.items():
+            ms[name].append(time_ms(lambda: pipe.fingerprint_waves(waves), reps=10))
+    for name, pipe in pipes.items():
+        wall = sum(ms[name]) / len(ms[name])
+        print(f"serving {name} B={B}: {ms[name][0]:.3f}, {ms[name][1]:.3f} ms = "
+              f"{B / wall * 1e3:.1f} fp/s [{card}]", flush=True)
+        print_profile(f"serving {name} B={B}", wall,
+                      lambda: pipe.fingerprint_waves(waves), card)
+    return by_path
+
+
+def recall_at(got: np.ndarray, want: np.ndarray, k: int) -> float:
+    """Mean share of each row's first k reference ids among its first k
+    ids (recall@1: the first id equal)."""
+    if k == 1:
+        return float((got[:, 0] == want[:, 0]).mean())
+    return float(np.mean([len(set(a[:k]) & set(b[:k])) / k for a, b in zip(got, want)]))
+
+
+def index_rest_phase(cat: dict, work: str, card: str) -> None:
+    """Phase 11b and c: 'ivfpq-rr' and 'lsh' over phase 8's 2^20-row
+    catalogue (train and add seconds, queries/s at k = 20, recall@1 and
+    @10 against exact 'l2'); 'l2' and 'ivfpq' with scan_topk='approx' at
+    scan_recall 0.99 and 0.95 beside the exact selection on the same index
+    (recall against it >= the target less APPROX_SLACK); native 'hnsw' on
+    HNSW_ROWS rows (build rows/s, queries/s, recall@10 against exact);
+    then eval_faiss with each new type on phase 8's DBs."""
+    from grafp_tpu_torch.retrieval.evaluate import eval_faiss
+    from grafp_tpu_torch.retrieval.index import get_index
+
+    dummy, db, qrows, exact = cat["dummy"], cat["db"], cat["qrows"], cat["exact"]
+
+    def timed_search(idx, q):
+        idx.search(q[:1024], SEARCH_K)                                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ids = idx.search(q, SEARCH_K)
+        return ids, time.perf_counter() - t0
+
+    for kind in ("ivfpq-rr", "lsh"):
+        t0 = time.perf_counter()
+        idx = get_index(kind, dummy, dummy.shape, n_centroids=64)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        idx.add(dummy)
+        idx.add(db)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ids, secs = timed_search(idx, qrows)
+        r1, r10 = recall_at(ids, exact, 1), recall_at(ids, exact, 10)
+        print(f"index {kind}: train {t1 - t0:.3f} s, add {t2 - t1:.3f} s ({idx.ntotal} "
+              f"rows), search {len(qrows)} queries k={SEARCH_K} in {secs:.3f} s = "
+              f"{len(qrows) / secs:.1f} queries/s; recall@1 {r1:.4f} recall@10 {r10:.4f} "
+              f"against exact l2 [{card}]", flush=True)
+        check(ids.shape == (len(qrows), SEARCH_K) and (ids >= 0).all(), f"{kind}: bad ids")
+        del idx
+        torch.cuda.empty_cache()
+
+    for kind in ("l2", "ivfpq"):
+        idx = get_index(kind, dummy, dummy.shape, n_centroids=64)
+        idx.add(dummy)
+        idx.add(db)
+        res = {}
+        for turn in range(2):
+            for scan, recall in (("exact", 0.99), ("approx", 0.99), ("approx", 0.95)):
+                idx.scan_topk, idx.scan_recall = scan, recall
+                ids, secs = timed_search(idx, qrows)
+                res.setdefault((scan, recall), []).append(len(qrows) / secs)
+                if turn == 0:
+                    res[(scan, recall, "ids")] = ids
+        ref = res[("exact", 0.99, "ids")]
+        for scan, recall in (("exact", 0.99), ("approx", 0.99), ("approx", 0.95)):
+            got = recall_at(res[(scan, recall, "ids")], ref, SEARCH_K)
+            label = "exact" if scan == "exact" else f"approx scan_recall {recall}"
+            print(f"index {kind} {label}: " + ", ".join(
+                f"{v:.1f}" for v in res[(scan, recall)]) + f" queries/s (two turns); "
+                f"recall@{SEARCH_K} against the exact selection {got:.4f} [{card}]",
+                flush=True)
+            if scan == "approx":
+                check(got >= recall - APPROX_SLACK,
+                      f"{kind} approx {recall}: recall {got:.4f}")
+        del idx
+        torch.cuda.empty_cache()
+
+    sub = dummy[:HNSW_ROWS]
+    hq = qrows[:2000]
+    flat = get_index("l2", sub, sub.shape)
+    flat.add(sub)
+    _, sub_exact = flat.search(hq, SEARCH_K)
+    del flat
+    idx = get_index("hnsw", sub, sub.shape)
+    t0 = time.perf_counter()
+    idx.add(sub)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, ids = idx.search(hq, SEARCH_K)
+    t_q = time.perf_counter() - t0
+    r10 = recall_at(ids, sub_exact, 10)
+    print(f"index hnsw (native, host): build {len(sub)} rows in {t_build:.3f} s = "
+          f"{len(sub) / t_build:.1f} rows/s; search {len(hq)} queries k={SEARCH_K} in "
+          f"{t_q:.3f} s = {len(hq) / t_q:.1f} queries/s; recall@10 {r10:.4f} against "
+          f"exact l2 on the subset", flush=True)
+    check(idx._native is not None and r10 > 0.5, "hnsw: not native or recall too low")
+    del idx
+
+    sls = [int(x) for x in EVAL_SEQ.split()]
+    runs = (("built", "ivfpq-rr", "dummy"), ("built, clean queries", "ivfpq-rr", "dummy"),
+            ("built", "lsh", "dummy"), ("build", "hnsw", "build"))
+    for name, kind, dummy_dir in runs:
+        t0 = time.perf_counter()
+        hr = eval_faiss(os.path.join(work, name), os.path.join(work, dummy_dir),
+                        index_type=kind, test_ids=str(EVAL_TEST_IDS), test_seq_len=EVAL_SEQ,
+                        n_centroids=64, verbose=False)
+        print(f"eval_faiss {kind} on {name} (dummy rows from {dummy_dir!r}): "
+              f"{time.perf_counter() - t0:.3f} s; hit rates (%), rows top-1 exact / "
+              f"top-1 near / top-3 / top-10, columns {sls}: "
+              + json.dumps(np.round(hr, 4).tolist()) + f" [{card}]", flush=True)
+        check(hr.shape == (4, len(sls)) and bool(np.isfinite(hr).all())
+              and bool(((hr >= 0) & (hr <= 100)).all())
+              and bool((hr[3] >= hr[2]).all() and (hr[2] >= hr[0]).all()),
+              f"eval_faiss {kind} on {name}: hit rates malformed")
+        if name == "built, clean queries":
+            check(bool((hr[0] == 100).all()), f"{kind}: a clean db row misses itself")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1765,34 +1965,46 @@ def main() -> int:
     del variants, spec
     torch.cuda.empty_cache()
 
-    # 8. the evaluation path
+    # 8. the evaluation path; its memmaps stay for phase 11
     print(f"phase 8 at {time.perf_counter() - t_all:.1f} s", flush=True)
-    with tempfile.TemporaryDirectory() as work:
-        db_build, build_fps = eval_phase(cfg16, model16.state_dict(), zero_counts, counts,
-                                         card, work)
-    for name in wrappers:
-        launches[name]["db_build"] = db_build.get(name, 0)
-    torch.cuda.empty_cache()
-
-    # 9. the entry points
-    print(f"phase 9 at {time.perf_counter() - t_all:.1f} s", flush=True)
-    t9 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
-        cli = cli_phase(model16.state_dict(), zero_counts, counts, card, work, t_step,
-                        build_fps)
+    serve_state = {k: v.detach().clone() for k, v in model16.state_dict().items()}
+    with tempfile.TemporaryDirectory() as eval_work:
+        db_build, build_fps, catalogue = eval_phase(cfg16, serve_state, zero_counts,
+                                                    counts, card, eval_work)
         for name in wrappers:
-            launches[name]["cli"] = cli.get(name, 0)
-        print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
-        del model16, pipe16, fpipe16
+            launches[name]["db_build"] = db_build.get(name, 0)
         torch.cuda.empty_cache()
 
-        # 10. the baseline encoders, on phase 9's corpus
-        print(f"phase 10 at {time.perf_counter() - t_all:.1f} s", flush=True)
-        t10 = time.perf_counter()
-        baselines_phase(work, zero_counts, counts, card)
-        for name in wrappers:
-            launches[name]["baselines"] = 0           # each step checked none
-        print(f"phase 10 took {time.perf_counter() - t10:.1f} s")
+        # 9. the entry points
+        print(f"phase 9 at {time.perf_counter() - t_all:.1f} s", flush=True)
+        t9 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as work:
+            cli = cli_phase(serve_state, zero_counts, counts, card, work, t_step,
+                            build_fps)
+            for name in wrappers:
+                launches[name]["cli"] = cli.get(name, 0)
+            print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+            del model16, pipe16, fpipe16
+            torch.cuda.empty_cache()
+
+            # 10. the baseline encoders, on phase 9's corpus
+            print(f"phase 10 at {time.perf_counter() - t_all:.1f} s", flush=True)
+            t10 = time.perf_counter()
+            baselines_phase(work, zero_counts, counts, card)
+            for name in wrappers:
+                launches[name]["baselines"] = 0           # each step checked none
+            print(f"phase 10 took {time.perf_counter() - t10:.1f} s")
+
+        # 11. int8 serving, then the rest of the index family on phase 8's
+        # catalogue
+        print(f"phase 11 at {time.perf_counter() - t_all:.1f} s", flush=True)
+        t11 = time.perf_counter()
+        for path, n in int8_phase(serve_state, waves, zero_counts, counts, card).items():
+            launches["mrconv_concat"][path] = n
+            launches["grapher_block"][path] = 0               # checked none
+        torch.cuda.empty_cache()
+        index_rest_phase(catalogue, eval_work, card)
+        print(f"phase 11 took {time.perf_counter() - t11:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     sources = {"mrconv_concat": ("mrconv_concat.cu", "grafp_tpu/ops/pallas_knn.py:376"),

@@ -136,9 +136,6 @@ def main(argv=None, device=None):
     if int(cfg["mesh_db"] or 0) > 1:
         raise NotImplementedError(
             "mesh_db > 1: the DB-sharded search over several cards is ROADMAP A7")
-    if cfg["scan_topk"] == "approx":
-        raise NotImplementedError(
-            "scan_topk='approx': the approximate top-k has no port yet (ROADMAP A6)")
     data_dir = cfg["data_dir"]
     if args.test_snr is not None:
         cfg["val_snr"] = [int(args.test_snr), int(args.test_snr)]
@@ -230,7 +227,8 @@ def main(argv=None, device=None):
 
             hit_rates = eval_faiss(emb_dir=fp_dir, test_ids=args.test_ids,
                                    test_seq_len=" ".join(map(str, test_seq_len)),
-                                   index_type=index_type, device=dev)
+                                   index_type=index_type, scan_topk=cfg["scan_topk"],
+                                   scan_recall=cfg["scan_recall"], device=dev)
             text = f"{args.text}_{epoch}"
             label = epoch if isinstance(epoch, int) else 0
             writer.add_text("table", create_table(hit_rates, cfg["overlap"], cfg["dur"],

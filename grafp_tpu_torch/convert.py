@@ -14,12 +14,15 @@ that both packages compute the same function. Layout changes:
   running_mean, running_var};
 * LayerNorm ``scale`` -> ``weight`` (the AST's, (D,)); NAFP's full-shape
   LayerNorm {scale, bias} (H, W, C) -> (C, H, W);
-* the AST's ``cls_token`` and ``pos_embed`` keep their names and layout.
+* the AST's ``cls_token`` and ``pos_embed`` keep their names and layout;
+* the ``act_scales`` collection of a static int8 model
+  (``.../Dense_0/amax``, ``.../GroupedPointwiseConv_0/amax``) -> the
+  quantised layers' ``amax`` buffers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,23 +69,31 @@ def _port_entry(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray
 
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
-                        model: nn.Module) -> Dict[str, torch.Tensor]:
+                        model: nn.Module,
+                        act_scales: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
     """The port ``model``'s state_dict holding the JAX weights, as f32 CPU
     tensors: the port keeps every parameter and statistic in f32 and casts
     to the compute dtype at use, as flax does, so one tree serves the
-    serving and the training model. Raises KeyError on a missing or extra
-    key, or on two leaves that map to one key, and ValueError on a shape
-    mismatch, against ``model.state_dict()``."""
+    serving and the training model. ``act_scales``, JAX's collection of
+    that name, goes onto the quantised layers' ``amax`` buffers; without it
+    they are left out (a quantised model loads a plain checkpoint). Raises
+    KeyError on a missing or extra key (an ``act_scales`` leaf that maps to
+    no ``amax`` buffer included), or on two leaves that map to one key, and
+    ValueError on a shape mismatch, against ``model.state_dict()``."""
     leaves = {**_flatten(params), **_flatten(batch_stats)}
+    scales = _flatten(act_scales or {})
     out: Dict[str, torch.Tensor] = {}
-    for path, arr in leaves.items():
+    for path, arr in list(leaves.items()) + list(scales.items()):
         key, arr = _port_entry(path, arr)
         if key in out:
             raise KeyError(f"state_dict_from_jax: two leaves map to {key}, the "
                            f"second {'/'.join(path)}")
+        if path in scales and not key.endswith(".amax"):
+            raise KeyError(f"state_dict_from_jax: act_scales leaf {'/'.join(path)} "
+                           "is no activation max")
         out[key] = torch.tensor(np.asarray(arr, np.float32))
     want = model.state_dict()
-    missing = sorted(set(want) - set(out))
+    missing = sorted(k for k in set(want) - set(out) if not k.endswith(".amax"))
     extra = sorted(set(out) - set(want))
     if missing or extra:
         raise KeyError(f"state_dict_from_jax: missing {missing[:8]} "

@@ -3,7 +3,11 @@
 
 The pipeline serves through a BatchNorm-folded copy of the model
 (``models/fold_bn.py``) on the card, of any arch: the baselines, which
-have no BatchNorm, serve as they are. Track lengths are bucketed as in the
+have no BatchNorm, serve as they are. Under ``serve_quant='int8_static'``
+it serves from the model's calibrated activation maxima, or from
+``act_scales``; when it has neither (the CLIs load plain checkpoints), it
+calibrates once on the first model inputs it sees, as the JAX pipeline
+does (``grafp_tpu/fp/builder.py:157-175``). Track lengths are bucketed as in the
 reference pipeline: the true track is reflect-padded with its own
 samples, zero-filled up to the next multiple of ``bucket_s`` seconds, and
 only the reference-defined segments are kept, so every fingerprint equals
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,6 +42,7 @@ from grafp_tpu_torch.dsp.augment import (
 from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram
 from grafp_tpu_torch.dsp.segment import num_segments, unfold_segments
 from grafp_tpu_torch.models.fold_bn import fold_batch_norms
+from grafp_tpu_torch.models.simclr import calibrate_act_scales
 from grafp_tpu_torch.retrieval.memmap_io import MemmapWriter
 
 # Tracks per packed call when the Config sets no build_pack. On an H100
@@ -49,13 +54,31 @@ DEFAULT_BUILD_PACK = 8
 
 class FingerprintPipeline:
     """Serving and DB-build entry points around a BatchNorm-folded copy of
-    an eval-mode SimCLRModel on ``device`` (None = the CUDA card)."""
+    an eval-mode SimCLRModel on ``device`` (None = the CUDA card).
+
+    ``act_scales`` ({``....amax`` key: value}, from ``calibrate_act_scales``)
+    sets a static int8 model's activation maxima. A static model whose
+    maxima are all 0 and that gets none is calibrated lazily: one exact
+    'int8_calibrate' pass of the unfolded ``model`` over the first (<=
+    ``batch_size``) model inputs the pipeline sees, the first track's
+    segments in the track builders (``_ensure_calibrated``). Under dynamic
+    int8 a fingerprint depends on the rest of its batch (one activation
+    scale per tensor), as in the JAX package."""
 
     def __init__(self, model, cfg, batch_size: int = 256,
                  bucket_s: float = 10.0,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 act_scales: Optional[Dict[str, torch.Tensor]] = None):
         self.device = resolve_device(device)
         self.model = fold_batch_norms(model.to(self.device))
+        if act_scales:
+            self._set_scales(act_scales)
+        amax = [b for n, b in self.model.named_buffers() if n.endswith("amax")]
+        quant = str(cfg.get("serve_quant") or "none").lower()
+        self._needs_calibration = (quant == "int8_static" and not act_scales
+                                   and all(float(a) == 0.0 for a in amax))
+        # the unfolded model, kept only until it is calibrated
+        self._source = model if self._needs_calibration else None
         self.cfg = cfg
         self.batch_size = batch_size
         self.fs = int(cfg["fs"])
@@ -77,12 +100,27 @@ class FingerprintPipeline:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
+    def _set_scales(self, scales: Dict[str, torch.Tensor]) -> None:
+        with torch.no_grad():
+            for key, val in scales.items():
+                self.model.get_buffer(key).copy_(torch.as_tensor(val))
+
+    def _ensure_calibrated(self, spec_batch) -> None:
+        """The lazy one-shot calibration (see the class): a no-op unless it
+        is still due and ``spec_batch`` holds a row."""
+        if not self._needs_calibration or len(spec_batch) == 0:
+            return
+        self._set_scales(calibrate_act_scales(
+            self.cfg, self._source, [spec_batch[:self.batch_size]], device=self.device))
+        self._needs_calibration, self._source = False, None
+
     def _pack(self, pack: Optional[int]) -> int:
         return self.build_pack if pack is None else max(1, int(pack))
 
     @torch.inference_mode()
     def embed(self, spec) -> torch.Tensor:
         """(B, n_mels, n_frames) log-mel -> (B, d) f32 fingerprints."""
+        self._ensure_calibrated(spec)
         _, z = self.model(self._tensor(spec))
         return z.to(torch.float32)
 
@@ -151,6 +189,10 @@ class FingerprintPipeline:
         the packing (eval-mode model), so each equals its
         ``fingerprint_track``."""
         padded = [self._pad_track(np.asarray(w, np.float32)) for w in waves]
+        if self._needs_calibration:
+            first = next((w for w, (_, s) in zip(waves, padded) if s > 0), None)
+            if first is not None:
+                self._ensure_calibrated(self.segments_for(np.asarray(first, np.float32)))
         kpack = self._pack(pack)
         out: List[Optional[np.ndarray]] = [None] * len(padded)
         i = 0
@@ -220,6 +262,7 @@ class FingerprintPipeline:
 
         def emit(batch: np.ndarray, n_valid: int) -> None:
             nonlocal total
+            self._ensure_calibrated(batch[:n_valid])
             writer.append(self.embed(batch).cpu().numpy()[:n_valid])
             total += n_valid
 

@@ -13,6 +13,13 @@ and the Grapher's fc1/gconv/fc2 (a fused Grapher reads the folded
 weights through ``Grapher.folded_weights`` as before). The bias-free stem
 and FFN linears take the shift as a new bias.
 
+Under int8 serving (``quant``) the fold commutes with the weight
+quantisation: a channel's BatchNorm scale s multiplies its weight column,
+so its scale becomes |s| sw and round(w s / (|s| sw)) = sign(s) round(w /
+sw); the activation scale is taken over the layer's input, which the fold
+does not change. Folded int8 serving is held against unfolded int8 in
+``tests/test_torch_port_quant.py``.
+
 The JAX package keeps the fold for export only: XLA already fuses each
 eval BatchNorm into the matmul before it (``grafp_tpu/models/fold_bn.py``).
 Eager PyTorch runs each BatchNorm as separate f32 elementwise passes, 28
@@ -36,7 +43,12 @@ import torch
 import torch.nn as nn
 
 from grafp_tpu_torch.models.gnn import FFN, Downsample, GraphEncoder, Grapher
-from grafp_tpu_torch.models.layers import BN_EPS, BatchNorm, GroupedPointwiseConv
+from grafp_tpu_torch.models.layers import (
+    BN_EPS,
+    BatchNorm,
+    GroupedPointwiseConv,
+    PointwiseConv,
+)
 
 # (owner type, linear attribute, BatchNorm attribute) of every eval pair
 _PAIRS = ((GraphEncoder, "stem", "stem_bn"), (Downsample, "conv", "bn"),
@@ -66,8 +78,9 @@ def fold_batch_norms(model: nn.Module) -> nn.Module:
     mode with every (linear -> BatchNorm) pair folded into the linear, eps
     1e-5, and the BatchNorm replaced by ``nn.Identity``; the weights each
     forward would rebuild (the fused Grapher's, the grouped conv's dense
-    weight) are frozen in the copy. The input model is left as it is. A
-    model already folded comes back unchanged."""
+    weight, a quantised layer's int8 weight) are frozen in the copy. The
+    input model is left as it is. A model already folded comes back
+    unchanged."""
     out = copy.deepcopy(model).eval()
     for m in list(out.modules()):
         for owner, lin_name, bn_name in _PAIRS:
@@ -85,7 +98,7 @@ def fold_batch_norms(model: nn.Module) -> nn.Module:
             _fold(conv, m.gconv.bn, (g, 1, cog))
             m.gconv.bn = nn.Identity()
     for m in out.modules():
-        if isinstance(m, (Grapher, GroupedPointwiseConv)):
+        if isinstance(m, (Grapher, GroupedPointwiseConv, PointwiseConv)):
             m.freeze()
     return out
 

@@ -13,6 +13,13 @@ Grapher whose shape the guard admits runs as one fused op instead
 (``ops.grapher_block``: fc1, kNN MRConv, grouped conv, fc2, the three
 BatchNorms folded in, and the residual).
 
+``quant`` ('dynamic' | 'static' | 'calibrate', serving only) makes every
+pointwise and grouped conv of the encoder int8 (``models/layers.py``): the
+stem, each Grapher's fc1, grouped conv and fc2, each FFN's fc1 and fc2,
+and the projection; the Downsamples stay full precision, as in the JAX
+package. A quantised Grapher never fuses (``grafp_tpu/models/gnn.py:
+221-223``), so on the card it launches the MRConv kernel.
+
 Reference quirk kept: the reference never increments its block counter,
 so every block runs dilation 1 and drop_path 0 (graph_encoder.py:139-151,
 ``dilation_schedule='reference'``, ``drop_path_schedule='reference'``).
@@ -67,10 +74,10 @@ class MRConv(nn.Module):
     - x]) -> BN -> act (torch_vertex.py:11-34)."""
 
     def __init__(self, in_features: int, out_features: int, act: str = "relu",
-                 groups: int = 4, dtype: Optional[torch.dtype] = None):
+                 groups: int = 4, dtype: Optional[torch.dtype] = None, quant=None):
         super().__init__()
         self.conv = GroupedPointwiseConv(in_features, out_features, groups,
-                                         dtype=dtype)
+                                         dtype=dtype, quant=quant)
         self.bn = BatchNorm(out_features, dtype=dtype)
         self.act = act_layer(act)
 
@@ -86,7 +93,8 @@ class Grapher(nn.Module):
     ``grapher_block_supported`` admits as one fused op on BatchNorm-folded
     weights, folded from the live parameters on every call; 'auto' does so
     on a CUDA tensor and never on the CPU; 'off' never fuses. Training
-    never fuses. Both paths share the same submodules and state_dict keys.
+    and ``quant`` never fuse. Both paths share the same submodules and
+    state_dict keys.
 
     Why 'auto' fuses on the card: on an H100 80GB HBM3 at 700 W the
     BatchNorm-folded bf16 forward from log-mel took 7.2-8.0 ms fused
@@ -99,7 +107,8 @@ class Grapher(nn.Module):
 
     def __init__(self, features: int, k: int = 3, dilation: int = 1,
                  conv: str = "mr", act: str = "relu",
-                 dtype: Optional[torch.dtype] = None, fuse_serving: str = "auto"):
+                 dtype: Optional[torch.dtype] = None, fuse_serving: str = "auto",
+                 quant=None):
         super().__init__()
         if conv != "mr":
             raise NotImplementedError(f"conv {conv!r}: {_LATER}")
@@ -110,11 +119,11 @@ class Grapher(nn.Module):
         c = features
         self.k = k
         self.dtype = dtype
-        self.fuse_serving = fuse_serving if act == "relu" else "off"
-        self.fc1 = PointwiseConv(c, c, dtype=dtype)
+        self.fuse_serving = fuse_serving if act == "relu" and not quant else "off"
+        self.fc1 = PointwiseConv(c, c, dtype=dtype, quant=quant)
         self.fc1_bn = BatchNorm(c, dtype=dtype)
-        self.gconv = MRConv(2 * c, 2 * c, act=act, dtype=dtype)
-        self.fc2 = PointwiseConv(2 * c, c, dtype=dtype)
+        self.gconv = MRConv(2 * c, 2 * c, act=act, dtype=dtype, quant=quant)
+        self.fc2 = PointwiseConv(2 * c, c, dtype=dtype, quant=quant)
         self.fc2_bn = BatchNorm(c, dtype=dtype)
 
     def folded_weights(self, dt: torch.dtype):
@@ -137,7 +146,9 @@ class Grapher(nn.Module):
         """Keep the fused op's weights, folded in the compute dtype, as
         buffers (moved by ``.to``, not saved), so that a serving copy whose
         parameters no longer change rebuilds nothing per call
-        (``models/fold_bn.py``)."""
+        (``models/fold_bn.py``). A Grapher that never fuses keeps none."""
+        if self.fuse_serving == "off":
+            return
         with torch.no_grad():
             for name, w in zip(_FUSED, self.folded_weights(self.dtype or torch.float32)):
                 self.register_buffer(f"frozen_{name}", w.detach().clone(),
@@ -169,12 +180,12 @@ class FFN(nn.Module):
     (graph_encoder.py:45-67)."""
 
     def __init__(self, features: int, hidden: int, act: str = "relu",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, quant=None):
         super().__init__()
-        self.fc1 = PointwiseConv(features, hidden, bias=False, dtype=dtype)
+        self.fc1 = PointwiseConv(features, hidden, bias=False, dtype=dtype, quant=quant)
         self.fc1_bn = BatchNorm(hidden, dtype=dtype)
         self.act = act_layer(act)
-        self.fc2 = PointwiseConv(hidden, features, bias=False, dtype=dtype)
+        self.fc2 = PointwiseConv(hidden, features, bias=False, dtype=dtype, quant=quant)
         self.fc2_bn = BatchNorm(features, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -212,20 +223,22 @@ class GraphEncoder(nn.Module):
     """(B, N, C_in) node features -> (B, emb_dims) embedding
     (graph_encoder.py:69-191): stem, per-stage Grapher+FFN blocks with a
     Downsample between stages, 1x1 projection, mean over nodes.
-    ``fuse_serving`` goes to every Grapher."""
+    ``fuse_serving`` goes to every Grapher, ``quant`` to every pointwise and
+    grouped conv."""
 
     def __init__(self, in_features: int = 8, size: str = "t", k: int = 3,
                  conv: str = "mr", act: str = "relu", emb_dims: int = 1024,
                  dilation_schedule: str = "reference",
                  drop_path_schedule: str = "reference",
-                 dtype: Optional[torch.dtype] = None, fuse_serving: str = "auto"):
+                 dtype: Optional[torch.dtype] = None, fuse_serving: str = "auto",
+                 quant=None):
         super().__init__()
         if dilation_schedule != "reference" or drop_path_schedule != "reference":
             raise NotImplementedError(
                 f"schedules other than 'reference': {_LATER}")
         blocks, channels = SIZE_PRESETS[size]
         self.stem = PointwiseConv(in_features, channels[0], bias=False,
-                                  dtype=dtype)
+                                  dtype=dtype, quant=quant)
         self.stem_bn = BatchNorm(channels[0], dtype=dtype)
         self.layers = []
         idx = 0
@@ -235,11 +248,11 @@ class GraphEncoder(nn.Module):
             for _ in range(nb):
                 self._add(f"block{idx}_grapher",
                           Grapher(ch, k=k, conv=conv, act=act, dtype=dtype,
-                                  fuse_serving=fuse_serving))
+                                  fuse_serving=fuse_serving, quant=quant))
                 self._add(f"block{idx}_ffn",
-                          FFN(ch, hidden=ch * 4, act=act, dtype=dtype))
+                          FFN(ch, hidden=ch * 4, act=act, dtype=dtype, quant=quant))
                 idx += 1
-        self.proj = PointwiseConv(channels[-1], emb_dims, dtype=dtype)
+        self.proj = PointwiseConv(channels[-1], emb_dims, dtype=dtype, quant=quant)
 
     def _add(self, name: str, module: nn.Module) -> None:
         self.add_module(name, module)

@@ -8,12 +8,23 @@ land on f32 values; a dense layer computes in the compute dtype; a
 BatchNorm keeps f32 statistics and parameters, normalises in f32 and
 emits the compute dtype. The grouped MRConv conv keeps its f32
 accumulator (``dense_matmul_bf16grad``).
+
+int8 serving (``quant``, eval only; ``grafp_tpu/models/layers.py:73-337``):
+a pointwise or grouped conv built with ``quant`` 'dynamic' or 'static'
+quantises its input with one scale for the whole tensor (max |x| / 127,
+per call, or from the calibrated ``amax`` buffer), its weight with one
+scale per output channel, multiplies on ``torch._int_mm`` (int32 result,
+exact), dequantises in f32 and casts to the compute dtype BEFORE the bias,
+as the JAX package does; 'calibrate' runs the exact product and raises
+``amax`` to the running max |x|. The int8 product is a library call, as
+XLA's int8 ``dot_general`` is in the JAX package: neither is a Pallas
+kernel.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -122,23 +133,160 @@ def dense_matmul_bf16grad(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return DenseMatmulBF16Grad.apply(x, w)
 
 
-class PointwiseConv(nn.Module):
+# --- int8 serving ----------------------------------------------------------
+
+QUANT_MODES = ("dynamic", "static", "calibrate")
+
+
+def quant_mode(quant) -> Optional[str]:
+    """The ``quant`` knob normalised (``grafp_tpu/models/layers.py:157``):
+    False/None -> None (the plain product), True -> 'dynamic', else one of
+    'dynamic' | 'static' | 'calibrate'."""
+    if not quant:
+        return None
+    if quant is True:
+        return "dynamic"
+    if str(quant) not in QUANT_MODES:
+        raise ValueError(f"quant mode must be dynamic|static|calibrate, got {quant!r}")
+    return str(quant)
+
+
+def _by_127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 rounded once, as XLA divides: by a tensor on t's device. On
+    a CUDA tensor PyTorch divides by a Python number through its
+    reciprocal, which can land one f32 ulp away."""
+    return t / torch.full((), 127.0, device=t.device)
+
+
+def quantize_weight(w_oi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, in) f32 weight -> ((out, in) int8, (out,) f32 scales): one
+    symmetric scale per output channel, max(max |w|, 1e-8) / 127, and
+    round half to even (``_int8_matmul_core``, ``layers.py:73-87``)."""
+    w = w_oi.detach().to(torch.float32)
+    sw = _by_127(torch.clamp(w.abs().amax(dim=1), min=1e-8))
+    return torch.round(w / sw[:, None]).to(torch.int8), sw
+
+
+def _check_int_mm(rows: int, k: int, n: int) -> None:
+    """torch._int_mm on a CUDA tensor takes more than 16 rows and inner and
+    output widths that are multiples of 8; raise a clear error where a
+    layer breaks that, rather than reach cuBLAS."""
+    if rows <= 16 or k % 8 or n % 8:
+        raise ValueError(
+            f"int8 product of {rows} rows x {k} -> {n} channels: torch._int_mm on "
+            "the card needs more than 16 rows and inner and output widths that "
+            "are multiples of 8")
+
+
+def int8_matmul(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor,
+                sx: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` on the int8 path, f32 result (``_int8_matmul_core``): x
+    (..., in) quantised by the scalar scale ``sx`` (round half to even,
+    clipped to +-127), the product of int8 x and ``qw`` (out, in) int8 on
+    ``torch._int_mm`` in int32, then int32 -> f32 times (sx * sw)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda:
+        _check_int_mm(x2.shape[0], x2.shape[1], qw.shape[0])
+    qx = x2.to(torch.float32, copy=True).div_(sx).round_().clamp_(-127.0, 127.0)
+    y = torch._int_mm(qx.to(torch.int8), qw.t())
+    # int32 x f32 -> f32 in one pass: each int32 converted, then multiplied
+    return torch.mul(y, sx * sw).reshape(*x.shape[:-1], qw.shape[0])
+
+
+class _Int8Linear(nn.Module):
+    """The int8 serving branch shared by ``PointwiseConv`` and
+    ``GroupedPointwiseConv`` (``_QuantDenseCore``, ``layers.py:172-215``).
+    A layer built with quant 'static' or 'calibrate' holds ``amax``, the
+    calibrated activation max (f32 scalar buffer, 0 until calibrated). It is
+    saved with the layer's state_dict, and a state_dict without it (a plain
+    checkpoint) loads and leaves it as it is."""
+
+    def _init_quant(self, quant) -> None:
+        self.quant = quant_mode(quant)
+        if self.quant in ("static", "calibrate"):
+            self.register_buffer("amax", torch.zeros(()))
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict,
+                              missing_keys, unexpected_keys, error_msgs):
+        super()._load_from_state_dict(state_dict, prefix, local_metadata, strict,
+                                      missing_keys, unexpected_keys, error_msgs)
+        if prefix + "amax" in missing_keys:
+            missing_keys.remove(prefix + "amax")
+
+    def dense_io(self) -> torch.Tensor:
+        """The layer's f32 (in, out) weight."""
+        raise NotImplementedError
+
+    def freeze_int8(self) -> None:
+        """Keep the quantised weight and its scales as buffers (moved by
+        ``.to``, not saved) for a serving copy whose parameters no longer
+        change (``models/fold_bn.py``)."""
+        with torch.no_grad():
+            qw, sw = quantize_weight(self.dense_io().t())
+        self.register_buffer("frozen_qw", qw.contiguous(), persistent=False)
+        self.register_buffer("frozen_sw", sw, persistent=False)
+
+    def _quant_forward(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        if self.quant == "calibrate":
+            y = _mm_f32(x.to(dt), self.dense_io().to(dt)).to(dt)
+            with torch.no_grad():
+                self.amax.copy_(torch.maximum(self.amax, x.abs().amax().to(torch.float32)))
+        else:
+            qw = self._buffers.get("frozen_qw")
+            if qw is None:
+                qw, sw = quantize_weight(self.dense_io().t())
+            else:
+                sw = self.frozen_sw
+            if self.quant == "dynamic":
+                lo, hi = torch.aminmax(x)                  # max |x| in one pass
+                sx = _by_127(torch.clamp(torch.maximum(-lo, hi), min=1e-8).to(torch.float32))
+            else:
+                sx = _by_127(torch.clamp(self.amax, min=1e-8))
+            y = int8_matmul(x, qw, sw, sx).to(dt)
+        return y if bias is None else y + bias.to(dt)
+
+
+class PointwiseConv(_Int8Linear):
     """1x1 conv over node tensors == a linear layer on the channel axis.
-    ``weight`` is (out, in), as nn.Linear."""
+    ``weight`` is (out, in), as nn.Linear. ``quant`` (eval only): None, or
+    'dynamic' | 'static' | 'calibrate' (``quant_mode``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, quant=None):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = (nn.Parameter(torch.empty(out_features)) if bias else None)
+        self._init_quant(quant)
 
     def init_weights(self, g: torch.Generator) -> None:
         torch_default_init(self.weight, self.bias, self.weight.shape[1], g)
 
+    def dense_io(self) -> torch.Tensor:
+        return self.weight.t()
+
+    def freeze(self) -> None:
+        if self.quant in ("dynamic", "static"):
+            self.freeze_int8()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            return self._quant_forward(x, self.bias)
         return F.linear(cast(x, self.dtype), cast(self.weight, self.dtype),
                         cast(self.bias, self.dtype))
+
+
+def grouped_as_blockdiag_dense(w: torch.Tensor, c_in: int, c_out: int) -> torch.Tensor:
+    """(g, cig, cog) grouped weights -> the block-diagonal dense (c_in,
+    c_out) weight over the grouped conv's own consecutive-block channel
+    layout (``grafp_tpu.models.layers._grouped_as_blockdiag_dense``);
+    entries off the blocks are exact zeros. Differentiable in ``w``."""
+    g, cig, cog = w.shape
+    bd = w.new_zeros((g, cig, g, cog))
+    idx = torch.arange(g, device=w.device)
+    bd[idx, :, idx, :] = w
+    return bd.reshape(c_in, c_out)
 
 
 def grouped_as_concat_dense(w: torch.Tensor, c_in: int, c_out: int) -> torch.Tensor:
@@ -147,34 +295,41 @@ def grouped_as_concat_dense(w: torch.Tensor, c_in: int, c_out: int) -> torch.Ten
     [a || b] (copy of ``grafp_tpu.models.layers.grouped_as_concat_dense``).
     Row p is row interleave(p) of the block-diagonal expansion; entries off
     the blocks are exact zeros. Differentiable in ``w``."""
-    g, cig, cog = w.shape
-    bd = w.new_zeros((g, cig, g, cog))
-    idx = torch.arange(g, device=w.device)
-    bd[idx, :, idx, :] = w
-    bd = bd.reshape(c_in, c_out)                 # rows: interleaved order
+    bd = grouped_as_blockdiag_dense(w, c_in, c_out)   # rows: interleaved order
     half = c_in // 2
     ar = torch.arange(half, device=w.device)
     return bd[torch.cat([2 * ar, 2 * ar + 1])]
 
 
-class GroupedPointwiseConv(nn.Module):
-    """Grouped 1x1 conv (reference BasicConv, groups=4) applied to the
-    concat layout [x || rel - x] that the MRConv kernel emits, as one
-    dense matmul with an f32 result plus the f32 bias. The parameters
-    keep the reference's grouped (g, cig, cog) layout over the
-    interleaved channels; the dense weight is rebuilt from them on every
-    forward, so gradients reach them and it never goes stale."""
+class GroupedPointwiseConv(_Int8Linear):
+    """Grouped 1x1 conv (reference BasicConv, groups=4) as one dense matmul
+    with an f32 result plus the f32 bias. With ``concat_interleaved`` (the
+    MRConv form) it is applied to the concat layout [x || rel - x] that the
+    MRConv kernel emits, the reference's channel interleave absorbed in the
+    dense weight's rows; without it, to the grouped conv's own channel
+    layout (block-diagonal). The parameters keep the reference's grouped
+    (g, cig, cog) layout; the dense weight is rebuilt from them on every
+    forward, so gradients reach them and it never goes stale.
+
+    ``quant`` (eval only, ``quant_mode``): the int8 product of the same
+    dense weight (its off-block zeros quantise to 0, so the per-output
+    scales are the grouped ones), cast to the compute dtype before the
+    bias (``grafp_tpu/models/layers.py:297-336``); the plain path keeps
+    the f32 accumulator and bias."""
 
     def __init__(self, in_features: int, out_features: int, groups: int = 4,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, quant=None,
+                 concat_interleaved: bool = True):
         super().__init__()
         if in_features % groups or out_features % groups:
             raise ValueError((in_features, out_features, groups))
         self.dtype = dtype
         self.in_features, self.out_features = in_features, out_features
+        self.concat_interleaved = concat_interleaved
         self.weight = nn.Parameter(torch.empty(
             groups, in_features // groups, out_features // groups))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        self._init_quant(quant)
 
     def init_weights(self, g: torch.Generator) -> None:
         # kaiming_normal over the torch fan_in (c_in / groups)
@@ -182,20 +337,31 @@ class GroupedPointwiseConv(nn.Module):
         with torch.no_grad():
             self.bias.zero_()
 
+    def dense_io(self) -> torch.Tensor:
+        """The f32 (in, out) dense weight on the input's channel layout."""
+        dense = (grouped_as_concat_dense if self.concat_interleaved
+                 else grouped_as_blockdiag_dense)
+        return dense(self.weight, self.in_features, self.out_features)
+
     def dense_weight(self) -> torch.Tensor:
-        """The (in, out) weight on the concat layout, in the compute dtype."""
-        return cast(grouped_as_concat_dense(
-            self.weight, self.in_features, self.out_features), self.dtype)
+        """The (in, out) dense weight in the compute dtype."""
+        return cast(self.dense_io(), self.dtype)
 
     def freeze(self) -> None:
-        """Keep the dense weight as a buffer (moved by ``.to``, not saved)
-        for a serving copy whose parameters no longer change
-        (``models/fold_bn.py``)."""
+        """Keep the weight the forward would rebuild (the dense weight in the
+        compute dtype, or under int8 the quantised weight and its scales) as
+        buffers (moved by ``.to``, not saved), for a serving copy whose
+        parameters no longer change (``models/fold_bn.py``)."""
+        if self.quant in ("dynamic", "static"):
+            self.freeze_int8()
+            return
         with torch.no_grad():
             self.register_buffer("frozen_dense", self.dense_weight().detach().clone(),
                                  persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            return self._quant_forward(x, self.bias)
         w = self._buffers.get("frozen_dense")
         if w is None:
             w = self.dense_weight()

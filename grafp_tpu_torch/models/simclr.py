@@ -6,7 +6,8 @@ the spectrogram directly."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import copy
+from typing import Dict, Iterable, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -22,6 +23,9 @@ from grafp_tpu_torch.ops.knn import l2_normalize
 from grafp_tpu_torch.ops.mrconv_concat import MAX_K, MAX_KN
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# serve_quant -> the layers' quant mode (grafp_tpu/models/simclr.py:78-89)
+_QUANT = {"none": None, "int8": "dynamic", "int8_static": "static",
+          "int8_calibrate": "calibrate"}
 
 
 class Projector(nn.Module):
@@ -86,17 +90,29 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
     ``fuse_serving`` goes to every Grapher ('auto': the fused block on the
     card, the unfused path on the CPU). On a CUDA device a Config whose
     grafp k or node count the kernels do not take is refused here (the
-    baselines launch none of them)."""
+    baselines launch none of them).
+
+    ``serve_quant`` (none | int8 | int8_static | int8_calibrate, else
+    ValueError) makes the grafp encoder's convs int8 for serving
+    (``models/layers.py``); the projector stays full precision, as in the
+    JAX package, whose last linear feeds the fingerprint directly. The
+    baselines refuse it (NotImplementedError), and ``create_train_state``
+    refuses a quantised Config. 'int8_static' serves from the ``amax``
+    buffers that ``calibrate_act_scales`` fills (``FingerprintPipeline``
+    calibrates them itself when they are all 0)."""
     dev = resolve_device(device)
     arch = cfg["arch"]
     if arch not in ("grafp", "ast", "nafp"):
         raise NotImplementedError(f"arch {arch}")
     if arch == "grafp" and dev.type == "cuda":
         _check_kernel_shapes(cfg)
-    quant = str(cfg["serve_quant"] or "none").lower()
-    if quant != "none":
-        raise NotImplementedError(
-            f"serve_quant {quant!r}: int8 serving is a later slice of the port")
+    serve_quant = str(cfg["serve_quant"] or "none").lower()
+    if serve_quant not in _QUANT:
+        raise ValueError("serve_quant must be one of none|int8|int8_static|"
+                         f"int8_calibrate, got {serve_quant!r}")
+    quant = _QUANT[serve_quant]
+    if quant and arch != "grafp":
+        raise NotImplementedError("serve_quant int8 supports arch=grafp only")
     strategy = cfg["knn_strategy"]
     if arch == "grafp" and strategy not in ("auto", "pallas"):
         # the JAX Grapher runs the pair-layout MRConv for these
@@ -114,7 +130,7 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
             in_features=cfg["n_filters"], size=cfg["size"], k=int(cfg["k"]),
             emb_dims=cfg["h"], dilation_schedule=cfg["dilation_schedule"],
             drop_path_schedule=cfg["drop_path_schedule"], dtype=dtype,
-            fuse_serving=fuse_serving), cfg["h"]
+            fuse_serving=fuse_serving, quant=quant), cfg["h"]
     else:
         # the JAX projector takes the encoder's width, whatever cfg['h'] says
         encoder = (ASTEncoder if arch == "ast" else NAFPEncoder)(dtype=dtype)
@@ -126,3 +142,37 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     init_parameters(model, g)
     return model.to(dev).train(train)
+
+
+def calibrate_act_scales(cfg, model_or_state, spec_batches: Iterable,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """The activation maxima that ``serve_quant='int8_static'`` serves from
+    (``grafp_tpu/models/simclr.py:134-167``): an 'int8_calibrate' model with
+    the weights of ``model_or_state`` (a model, or a state_dict; any
+    ``amax`` in it is dropped, so each call starts from 0) runs each
+    (B, n_mels, n_frames) batch of ``spec_batches`` with the exact products
+    and raises every quantised layer's ``amax`` to the running max |x| of
+    its input. Returns {state_dict key ``....amax``: f32 scalar}, which a
+    static model takes through ``load_state_dict(..., strict=False)`` or
+    ``FingerprintPipeline(act_scales=...)``. Runs on ``device``: the model's
+    own, or for a state_dict None = the CUDA card."""
+    if isinstance(model_or_state, nn.Module):
+        state = model_or_state.state_dict()
+        if device is None:
+            device = next(model_or_state.parameters()).device
+    else:
+        state = model_or_state
+    ccfg = copy.copy(cfg)
+    ccfg["serve_quant"] = "int8_calibrate"
+    model = build_model(ccfg, device=device)
+    model.load_state_dict({k: v for k, v in state.items() if not k.endswith(".amax")})
+    dev = next(model.parameters()).device
+    seen = 0
+    with torch.no_grad():
+        for spec in spec_batches:
+            model(torch.as_tensor(spec, dtype=torch.float32, device=dev))
+            seen += 1
+    if not seen:
+        raise ValueError("calibrate_act_scales: no calibration batches")
+    return {k: v for k, v in model.state_dict().items() if k.endswith(".amax")}

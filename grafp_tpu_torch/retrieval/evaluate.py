@@ -230,14 +230,16 @@ def eval_faiss(emb_dir: str, emb_dummy_dir: Optional[str] = None,
                index_type: str = "ivfpq", max_train: float = 1e7, test_ids="icassp",
                test_seq_len="1 3 5 9 11 19", k_probe: int = 20,
                n_centroids: int = 64, verbose: bool = True,
-               scan_topk: str = "exact", rescore: str = "auto",
+               scan_topk: str = "exact", scan_recall: float = 0.99,
+               rescore: str = "auto",
                device: Optional[Union[str, torch.device]] = None) -> np.ndarray:
     """The reference's eval.py:170-332 on the port's index family, on
     ``device`` (None = the CUDA card): loads the query, db and dummy_db
-    memmaps, builds and trains the index on dummy_db, adds dummy_db and
-    db, rescores sequences (``rescore``: 'auto' | 'device' | 'host') and
-    returns the (4, n_sl) hit rates in percent, saved beside raw_score.npy
-    and test_ids.npy."""
+    memmaps, builds and trains the index (any type of ``get_index``) on
+    dummy_db, adds dummy_db and db, rescores sequences (``rescore``:
+    'auto' | 'device' | 'host') and returns the (4, n_sl) hit rates in
+    percent, saved beside raw_score.npy and test_ids.npy. ``scan_topk`` and
+    ``scan_recall`` go to ``get_index``."""
     if rescore not in ("auto", "device", "host"):
         raise ValueError(f"rescore must be 'auto', 'device' or 'host', got {rescore!r}")
     if isinstance(test_seq_len, str):
@@ -251,7 +253,8 @@ def eval_faiss(emb_dir: str, emb_dummy_dir: Optional[str] = None,
     dummy_db, dummy_db_shape = load_memmap_data(emb_dummy_dir or emb_dir, "dummy_db",
                                                 display=verbose)
     index = get_index(index_type, dummy_db, dummy_db.shape, max_train,
-                      n_centroids=n_centroids, scan_topk=scan_topk, device=device)
+                      n_centroids=n_centroids, scan_topk=scan_topk,
+                      scan_recall=scan_recall, device=device)
     t0 = time.time()
     index.add(dummy_db)
     index.add(db)

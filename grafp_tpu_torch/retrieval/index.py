@@ -1,17 +1,20 @@
 """The index family on the card (port of ``grafp_tpu.retrieval.index``,
-single device): 'l2' (flat exact), 'ivf' (IVFFlat, nlist = 400) and
-'ivfpq' (n_centroids cells, 64 x 8-bit PQ), behind the reference's
-factory contract: get_index(index_type, train_data, shape,
-max_nitem_train, n_centroids) -> an index with .train / .add /
-.search(q, k) / .nprobe / .ntotal (reference eval.py:9-123).
+single device): 'l2' (flat exact), 'ivf' (IVFFlat, nlist = 400), 'ivfpq'
+(n_centroids cells, 64 x 8-bit PQ), 'ivfpq-rr' (the same with a 4 x 4-bit
+residual PQ re-rank), 'lsh' (256-bit random-hyperplane codes) and 'hnsw'
+(on the host, ``retrieval/hnsw.py``), behind the reference's factory
+contract: get_index(index_type, train_data, shape, max_nitem_train,
+n_centroids) -> an index with .train / .add / .search(q, k) / .nprobe /
+.ntotal (reference eval.py:9-123).
 
-Every index scores dense blocks of rows with one engine
+Every index but 'hnsw' scores dense blocks of rows with one engine
 (``search.masked_scan_search``): rows stay in add order with a cell id
 each, and IVF selectivity is a probe mask (a row is scored iff its cell
 is among the query's nprobe nearest cells), so recall is exactly IVF's;
 PQ storage is scanned through a decoded bf16 cache, or decoded per block
-when the cache does not fit. Missing results are id -1 with an infinite distance (FAISS's
-convention).
+when the cache does not fit. ``scan_topk='approx'`` selects each block's
+candidates approximately (``search.topk_approx``). Missing results are id
+-1 with an infinite distance (FAISS's convention).
 """
 
 from __future__ import annotations
@@ -30,13 +33,12 @@ from grafp_tpu_torch.retrieval.search import (
     masked_scan_search,
     topk_lower_first,
 )
+from grafp_tpu_torch.retrieval.hnsw import IndexHNSW
 
 # rows per add() upload: 4M rows of 128 f32 are 2 GiB of host memory per
 # step, so a memmap catalogue (fma_large's 30.6M rows, 15.7 GB) is read
 # and uploaded in pieces; an 80 GB H100 holds the whole catalogue
 _ADD_CHUNK = 1 << 22
-# index types of the JAX package that the port has not taken yet
-_LATER = ("ivfpq-rr", "lsh", "hnsw")
 
 
 class _BlockScanSearcher:
@@ -54,6 +56,9 @@ class _BlockScanSearcher:
         self.nprobe = 20
         self.ntotal = 0
         self.is_trained = True
+        # each block's selection: 'exact' or 'approx' at scan_recall
+        self.scan_topk = "exact"
+        self.scan_recall = 0.99
 
     def _payload(self):
         """(rows_or_codes (M, *), codebooks or None, cells or None) on the
@@ -80,7 +85,8 @@ class _BlockScanSearcher:
         rows, codebooks, cells = self._payload()
         member = self._coarse_membership(qd) if cells is not None else None
         d, i = masked_scan_search(qd, rows, codebooks, cells, member, self.ntotal,
-                                  k, min(DB_BLOCK_ROWS, max(rows.shape[0], 1)))
+                                  k, min(DB_BLOCK_ROWS, max(rows.shape[0], 1)),
+                                  self.scan_topk, self.scan_recall)
         d, i = d.cpu().numpy(), i.cpu().numpy()
         return d, np.where(np.isinf(d), -1, i)
 
@@ -212,38 +218,146 @@ class IndexIVFPQ(IndexIVFFlat):
         return self.pq.decode(codes).cpu().numpy()
 
 
+class IndexIVFPQR(IndexIVFPQ):
+    """IVFPQ with a residual re-rank (reference 'ivfpq-rr', M_refine = 4,
+    nbits_refine = 4, eval.py:77-85; ``grafp_tpu/retrieval/index.py:385-456``):
+    a second PQ encodes each row's residual x - pq_reconstruction; a search
+    takes the k * k_factor best PQ candidates and re-scores them against
+    (PQ + refine) reconstructions. The refine PQ trains from a generator
+    seeded with ``seed + 2``. Both code arrays are kept on the host, where
+    the re-rank gathers and decodes only the candidates' rows."""
+
+    def __init__(self, d: int, nlist: int, device: torch.device,
+                 code_sz: int = 64, nbits: int = 8, m_refine: int = 4,
+                 nbits_refine: int = 4, k_factor: int = 4, seed: int = 0):
+        super().__init__(d, nlist, device, code_sz, nbits, seed)
+        self.refine = ProductQuantizer(d, m_refine, 2 ** nbits_refine)
+        self.k_factor = k_factor
+        self._rcodes = []
+        self._rr_cache = None
+
+    def train(self, data) -> None:
+        super().train(data)
+        x = torch.as_tensor(np.asarray(data, np.float32), device=self.device)
+        res = x - self.pq.decode(self.pq.encode(x))
+        self.refine.train(res, generator=torch.Generator().manual_seed(self.seed + 2))
+
+    def add(self, data) -> None:
+        for s in range(0, len(data), _ADD_CHUNK):
+            chunk = np.asarray(data[s:s + _ADD_CHUNK], np.float32)
+            super().add(chunk)                    # appends this chunk's PQ codes
+            x = torch.as_tensor(chunk, device=self.device)
+            res = x - self.pq.decode(self._codes[-1])
+            self._rcodes.append(self.refine.encode(res).cpu().numpy())
+        self._rr_cache = None
+
+    def _host_code_arrays(self):
+        """(PQ codes, refine codes) on the host, cached per add() epoch."""
+        if self._rr_cache is None:
+            self._rr_cache = (torch.cat(self._codes).cpu().numpy(),
+                              np.concatenate(self._rcodes))
+        return self._rr_cache
+
+    def _search_chunk(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        d0, i0 = super()._search_chunk(q, k * self.k_factor)
+        codes, rcodes = self._host_code_arrays()
+        flat = np.maximum(i0, 0).reshape(-1)
+        rec = (self.pq.decode_host(codes[flat])
+               + self.refine.decode_host(rcodes[flat])).reshape(*i0.shape, -1)
+        qd = torch.as_tensor(q, device=self.device)
+        dist = torch.sum((qd[:, None, :] - torch.as_tensor(rec, device=self.device)) ** 2,
+                         dim=-1)
+        cand = torch.as_tensor(i0, device=self.device)
+        dist.masked_fill_(cand < 0, float("inf"))
+        nd, sel = topk_lower_first(-dist, k)
+        d = (-nd).cpu().numpy()
+        return d, np.where(np.isinf(d), -1, torch.gather(cand, 1, sel).cpu().numpy())
+
+
+class IndexLSH(_BlockScanSearcher):
+    """Random-hyperplane LSH, nbits = 256 (reference eval.py:71-74;
+    ``grafp_tpu/retrieval/index.py:459-511``): a row's code is the sign of
+    its projection on each plane, +-1 int8. Search runs on the shared block
+    scan: the squared L2 distance between two +-1 codes is 4 x their Hamming
+    distance (both norms are nbits), so the scan ranks by Hamming distance
+    and the distances come back divided by 4. The planes are drawn from the
+    index's own ``torch.Generator(seed)``; ``planes`` may also be set."""
+
+    def __init__(self, d: int, device: torch.device, nbits: int = 256, seed: int = 0):
+        super().__init__(device)
+        self.d = d
+        self.nbits = nbits
+        self.planes = torch.randn(d, nbits, generator=torch.Generator().manual_seed(seed)
+                                  ).to(device)
+        self._codes = []
+        self._cache = None
+
+    def train(self, data) -> None:
+        pass
+
+    def _sign(self, x: torch.Tensor) -> torch.Tensor:
+        proj = torch.matmul(x, self.planes)
+        return torch.where(proj >= 0, 1, -1).to(torch.int8)
+
+    def add(self, data) -> None:
+        for s in range(0, len(data), _ADD_CHUNK):
+            chunk = torch.as_tensor(np.asarray(data[s:s + _ADD_CHUNK], np.float32),
+                                    device=self.device)
+            self._codes.append(self._sign(chunk))
+            self.ntotal += chunk.shape[0]
+        self._cache = None
+
+    def _payload(self):
+        if self._cache is None:
+            self._cache = (torch.cat(self._codes), None, None)
+        return self._cache
+
+    def search(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        qd = torch.as_tensor(np.asarray(q, np.float32), device=self.device)
+        d, i = super().search(self._sign(qd).to(torch.float32).cpu().numpy(), k)
+        return d / 4.0, i
+
+
 def get_index(index_type: str, train_data, train_data_shape,
               max_nitem_train: float = 2e7, n_centroids: int = 64,
-              scan_topk: str = "exact",
+              scan_topk: str = "exact", scan_recall: float = 0.99,
               device: Optional[Union[str, torch.device]] = None):
     """Factory with the reference's contract (eval.py:9-123): build, train
     on (subsampled) data, set nprobe = 20, return, on ``device`` (None =
     the CUDA card). The reference's ``use_gpu`` is left out: ``device``
-    decides.
-
-    'ivfpq-rr', 'lsh' and 'hnsw' are not ported yet, and neither is
-    ``scan_topk='approx'`` (``lax.approx_max_k`` has no PyTorch
-    counterpart): they raise NotImplementedError."""
-    if scan_topk != "exact":
-        raise NotImplementedError(
-            f"scan_topk={scan_topk!r}: the port selects exactly; "
-            "lax.approx_max_k has no PyTorch counterpart")
-    device = resolve_device(device)
+    decides. 'hnsw' runs on the host whatever ``device`` says, as the
+    reference's CPU FAISS IndexHNSWFlat does (eval.py:90-98): a sequential
+    graph walk, not a fallback. ``scan_topk`` ('exact' | 'approx') and
+    ``scan_recall`` (in (0, 1]) set the block scan's selection; anything
+    else raises ValueError, as does an unknown index type;
+    'ivfpq-ondisk' raises NotImplementedError, as in the JAX package."""
+    if scan_topk not in ("exact", "approx"):
+        raise ValueError(f"scan_topk must be 'exact' or 'approx', got {scan_topk!r}")
+    if not 0.0 < float(scan_recall) <= 1.0:
+        raise ValueError(f"scan_recall must be in (0, 1], got {scan_recall!r}")
     d = int(train_data_shape[1])
     mode = index_type.lower()
-    print(f"Creating index: {mode}")
-    if mode == "l2":
-        index = IndexFlat(d, device)
-    elif mode == "ivf":
-        index = IndexIVFFlat(d, 400, device)
-    elif mode == "ivfpq":
-        index = IndexIVFPQ(d, n_centroids, device, code_sz=64, nbits=8)
-    elif mode in _LATER:
-        raise NotImplementedError(
-            f"index {mode!r} is not ported yet (ROADMAP.md queue A, the "
-            "remaining index types)")
-    else:
+    if mode == "ivfpq-ondisk":
+        raise NotImplementedError(mode)
+    if mode not in ("l2", "ivf", "ivfpq", "ivfpq-rr", "lsh", "hnsw"):
         raise ValueError(mode)
+    print(f"Creating index: {mode}")
+    if mode == "hnsw":
+        index = IndexHNSW(d, m=16, ef_construction=80)
+    else:
+        device = resolve_device(device)
+        if mode == "l2":
+            index = IndexFlat(d, device)
+        elif mode == "ivf":
+            index = IndexIVFFlat(d, 400, device)
+        elif mode == "ivfpq":
+            index = IndexIVFPQ(d, n_centroids, device, code_sz=64, nbits=8)
+        elif mode == "ivfpq-rr":
+            index = IndexIVFPQR(d, n_centroids, device, code_sz=64, nbits=8,
+                                m_refine=4, nbits_refine=4)
+        else:
+            index = IndexLSH(d, device, nbits=256)
+        index.scan_topk, index.scan_recall = scan_topk, float(scan_recall)
     start = time.time()
     n = len(train_data)
     if n > max_nitem_train:

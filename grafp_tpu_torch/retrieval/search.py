@@ -13,11 +13,19 @@ first among equal values, and the sequence eval's hit rates depend on it.
 ``torch.topk`` promises no order among ties, so ``topk_lower_first``
 selects on a composite int64 key (the value's order-preserving bits, then
 the reversed index), which is exact and gives the JAX order.
+
+``scan_topk='approx'`` selects each block's candidates with the semantics
+of ``lax.approx_max_k`` on a TPU (``topk_approx``; Chern et al., "TPU-KNN",
+2022): the row is reduced to M bins, each keeping its largest value, and
+the top-k of the bin winners is taken exactly. The cross-block merge stays
+exact, as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
+
+import math
 
 import numpy as np
 import torch
@@ -34,17 +42,66 @@ from grafp_tpu_torch.core.device import resolve_device
 DB_BLOCK_ROWS = 1 << 20
 
 
-def topk_lower_first(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k largest values of f32 ``x`` along the last axis, largest
-    first, the lower index first among equal values (``lax.top_k``'s
-    order). -0.0 counts as 0.0; NaN is not expected."""
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order f32 ``x`` along the last axis by value, then
+    the lower index first among equal values: the value's order-preserving
+    bits in the high word, n - 1 - index in the low word."""
     n = x.shape[-1]
     bits = (x.to(torch.float32) + 0.0).contiguous().view(torch.int32)
     key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
     key.mul_(1 << 32)
-    key.add_(torch.arange(n - 1, -1, -1, device=x.device))
-    idx = torch.topk(key, k, dim=-1).indices
+    return key.add_(torch.arange(n - 1, -1, -1, device=x.device))
+
+
+def topk_lower_first(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest values of f32 ``x`` along the last axis, largest
+    first, the lower index first among equal values (``lax.top_k``'s
+    order). -0.0 counts as 0.0; NaN is not expected."""
+    idx = torch.topk(_order_key(x), k, dim=-1).indices
     return torch.gather(x, -1, idx), idx
+
+
+def approx_bins(n: int, k: int, recall_target: float) -> int:
+    """The number of bins M of ``topk_approx``: the least power of two with
+    ((M - 1) / M)^(k - 1) >= recall_target, the chance that a top-k element
+    shares its bin with none of the other k - 1, i.e. M >= 1 / (1 -
+    recall_target^(1 / (k - 1))); at least k. n (exact) when k = 1, when
+    recall_target >= 1 or when M would not be below n."""
+    if k <= 1 or recall_target >= 1.0:
+        return n
+    need = 1.0 / (1.0 - recall_target ** (1.0 / (k - 1)))
+    m = 1 << max(int(math.ceil(math.log2(max(need, k)))), 0)
+    return m if m < n else n
+
+
+def topk_approx(x: torch.Tensor, k: int, recall_target: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.approx_max_k``'s semantics on a TPU for f32 ``x`` (Q, n): the
+    row's columns go to M = ``approx_bins`` bins, column i to bin i mod M;
+    each bin keeps its largest value (the lower index among equal ones);
+    the k largest bin winners come out as ``topk_lower_first`` orders them.
+    Expected recall against the exact top-k is at least ``recall_target``;
+    exact (``topk_lower_first`` itself) when M = n."""
+    n = x.shape[-1]
+    m = approx_bins(n, k, recall_target)
+    if m >= n:
+        return topk_lower_first(x, k)
+    key = _order_key(x)
+    pad = (-n) % m
+    if pad:
+        key = torch.nn.functional.pad(key, (0, pad), value=torch.iinfo(torch.int64).min)
+    best = key.view(*key.shape[:-1], -1, m).amax(dim=-2)        # (Q, M) bin winners
+    top = torch.topk(best, k, dim=-1).values
+    idx = (n - 1) - (top & 0xFFFFFFFF)
+    return torch.gather(x, -1, idx), idx
+
+
+def approx_topk_ip(q: torch.Tensor, db: torch.Tensor, k: int,
+                   recall_target: float = 0.95) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inner-product top-k with the approximate selection
+    (``grafp_tpu/retrieval/search.py:90-103``): for L2-normalised
+    fingerprints the inner-product ranking is the L2 ranking."""
+    return topk_approx(torch.matmul(q, db.T), k, recall_target)
 
 
 def _sq_norms(x: torch.Tensor) -> torch.Tensor:
@@ -107,7 +164,8 @@ def masked_scan_search(q: torch.Tensor, rows_or_codes: torch.Tensor,
                        codebooks: Optional[torch.Tensor],
                        cells: Optional[torch.Tensor],
                        member: Optional[torch.Tensor], m_valid: int, k: int,
-                       block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                       block: int, scan_topk: str = "exact",
+                       recall_target: float = 0.99) -> Tuple[torch.Tensor, torch.Tensor]:
     """The scan behind the index family (``search.py:_masked_scan_local``):
     per block of ``block`` rows, (decode ->) squared-L2 distances -> pad
     mask (ids >= m_valid) -> IVF probe mask -> block top-k -> running
@@ -117,7 +175,10 @@ def masked_scan_search(q: torch.Tensor, rows_or_codes: torch.Tensor,
     rows_or_codes: (M, d) rows (f32, or a bf16 decode cache scored in
     f32), or (M, n_sub) uint8 PQ codes with ``codebooks`` (n_sub, ksub,
     dsub). cells (M,) int cell ids, -1 on pad rows, and member (Q, nlist)
-    bool probe membership, both None without IVF."""
+    bool probe membership, both None without IVF. ``scan_topk``: each
+    block's selection, 'exact' (``topk_lower_first``) or 'approx'
+    (``topk_approx`` at ``recall_target``); the merge across blocks is
+    exact either way."""
     nq = q.shape[0]
     q2 = torch.sum(q * q, dim=1, keepdim=True)
     best_s = torch.full((nq, k), float("inf"), device=q.device)
@@ -137,7 +198,9 @@ def masked_scan_search(q: torch.Tensor, rows_or_codes: torch.Tensor,
             c = cells[base:base + block]
             ok = member[:, c.clamp(min=0)] & (c >= 0)[None, :]
             dist.masked_fill_(~ok, float("inf"))
-        nd, sel = topk_lower_first(dist.neg_(), min(k, rows.shape[0]))
+        kk = min(k, rows.shape[0])
+        nd, sel = (topk_approx(dist.neg_(), kk, recall_target) if scan_topk == "approx"
+                   else topk_lower_first(dist.neg_(), kk))
         best_s, best_i = _merge(best_s, best_i, -nd, ids[sel], k, "l2")
     return best_s, best_i
 

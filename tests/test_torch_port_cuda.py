@@ -548,3 +548,80 @@ def test_score_block_on_the_card_matches_the_host(card):
                               torch.as_tensor(valid, device=card), sl)
     _, want = tev._score_block_host(recon, q.astype(np.float32), cand_s, valid, sl)
     assert (got.cpu().numpy() == want).all()
+
+
+def _int8_layer(kind, quant, seed=0):
+    from grafp_tpu_torch.models.layers import GroupedPointwiseConv, PointwiseConv
+
+    g = torch.Generator().manual_seed(seed)
+    if kind == "pointwise":
+        layer = PointwiseConv(64, 128, quant=quant)
+    else:
+        layer = GroupedPointwiseConv(128, 128, quant=quant,
+                                     concat_interleaved=kind == "grouped_concat")
+    init_parameters(layer, g)
+    with torch.no_grad():
+        layer.bias.copy_(0.1 * torch.randn(layer.bias.shape, generator=g))
+    return layer
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", ["dynamic", "static"])
+@pytest.mark.parametrize("kind", ["pointwise", "grouped_blockdiag", "grouped_concat"])
+def test_int8_layers_on_the_card_equal_the_cpu(card, kind, quant, dtype):
+    """The int8 product (torch._int_mm, int32) is exact, and the scales,
+    rounding and dequantisation are the same IEEE operations: a layer's
+    output on the card equals the CPU's bit for bit, in f32 and in bf16,
+    dynamic and static (amax 0.8 of the input's max: some values
+    saturate)."""
+    dt = getattr(torch, dtype)
+    layer = _int8_layer(kind, quant)
+    c_in = layer.weight.shape[-1] if kind == "pointwise" else 128
+    x = torch.randn(3, 200, c_in, generator=torch.Generator().manual_seed(1)).to(dt)
+    if quant == "static":
+        layer.amax.fill_(0.8 * float(x.abs().max()))
+    layer.dtype = dt
+    with torch.no_grad():
+        want = layer(x)
+        got = layer.to(card)(x.to(card)).cpu()
+    assert got.dtype == want.dtype == dt
+    assert torch.equal(got, want)
+
+
+def test_quantised_grapher_runs_unfused_and_launches_the_mrconv_kernel(card):
+    """Under quant the Grapher never fuses, even with fuse_serving 'on':
+    an eval forward on the card launches #3 (mrconv_concat) once and #5
+    (grapher_block) never, and its output equals the CPU's plain version
+    of the same int8 block row for row outside near ties."""
+    g = Grapher(64, quant="dynamic", fuse_serving="on").eval()
+    init_parameters(g, torch.Generator().manual_seed(2))
+    assert g.fuse_serving == "off" and not g.fuses(torch.zeros(1, 8, 64, device=card))
+    x = torch.randn(2, 256, 64, generator=torch.Generator().manual_seed(3))
+    f0, m0 = grapher_block.launches, mrconv_concat.launches
+    with torch.no_grad():
+        y = g.to(card)(x.to(card))
+    torch.cuda.synchronize()
+    assert (grapher_block.launches - f0, mrconv_concat.launches - m0) == (0, 1)
+    with torch.no_grad():
+        want = g.cpu()(x)
+    assert y.shape == want.shape and bool(torch.isfinite(y).all())
+    cos = torch.nn.functional.cosine_similarity(y.cpu().flatten(1), want.flatten(1))
+    assert float(cos.min()) > 0.999
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 128), (64, 60, 128), (64, 64, 100)])
+def test_int_mm_shape_rules_raise_clearly(card, shape):
+    """torch._int_mm on the card takes more than 16 rows and inner and
+    output widths that are multiples of 8: a layer that breaks a rule
+    raises a ValueError naming its shape, before cuBLAS is reached."""
+    from grafp_tpu_torch.models.layers import int8_matmul, quantize_weight
+
+    rows, k, n = shape
+    qw, sw = quantize_weight(torch.randn(n, k))
+    x = torch.randn(rows, k, device=card)
+    with pytest.raises(ValueError, match=f"{rows} rows x {k} -> {n} channels"):
+        int8_matmul(x, qw.to(card), sw.to(card), torch.tensor(0.01, device=card))
+    ok = torch.randn(17, 64, device=card)
+    qw, sw = quantize_weight(torch.randn(128, 64))
+    assert int8_matmul(ok, qw.to(card), sw.to(card),
+                       torch.tensor(0.01, device=card)).shape == (17, 128)

@@ -108,7 +108,10 @@ def test_grapher_outside_the_slice_raises(kwargs):
         Grapher(8, **kwargs)
 
 
-@pytest.mark.parametrize("override", [dict(serve_quant="int8"),
+@pytest.mark.parametrize("override", [# int8 serving came in slice 9
+                                      # (tests/test_torch_port_quant.py);
+                                      # an unknown serve_quant still raises
+                                      dict(serve_quant="int4"),
                                       # the port has every arch of the JAX
                                       # package (grafp, ast, nafp) since slice 8
                                       dict(arch="resnet"),

@@ -270,12 +270,21 @@ def test_index_search_matches_jax_on_carried_over_training(kind):
                                    rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("bad", [("ivfpq-rr", "exact"), ("lsh", "exact"),
-                                 ("hnsw", "exact"), ("l2", "approx")])
+@pytest.mark.parametrize("bad", [("ivfpq-ondisk", "exact", 0.99, NotImplementedError),
+                                 ("l2", "aprox", 0.99, ValueError),
+                                 ("lsh", "approx", 0.0, ValueError),
+                                 ("faiss", "exact", 0.99, ValueError)])
 def test_get_index_refuses_what_is_not_ported(bad):
+    """What get_index still refuses: 'ivfpq-ondisk' (as the JAX package
+    does), a scan_topk or scan_recall typo, an unknown type. The types and
+    the selection these cases once refused ('ivfpq-rr', 'lsh', 'hnsw',
+    scan_topk='approx') came in slice 9 and are built and searched in
+    tests/test_torch_port_index_rest.py::test_get_index_builds_and_searches."""
+    kind, scan, recall, err = bad
     data = np.zeros((10, 64), np.float32)
-    with pytest.raises(NotImplementedError):
-        tix.get_index(bad[0], data, data.shape, scan_topk=bad[1], device="cpu")
+    with pytest.raises(err):
+        tix.get_index(kind, data, data.shape, scan_topk=scan, scan_recall=recall,
+                      device="cpu")
 
 
 def test_get_index_defaults_to_the_card():
