@@ -115,12 +115,31 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      least the target less 0.02), native 'hnsw' on 20,000 rows (build
      rows/s, queries/s, recall@10); eval_faiss with 'ivfpq-rr' (the clean
      db rows as queries 100 % top-1), 'lsh' and 'hnsw' (on the built rows
-     only) on phase 8's DBs.
+     only) on phase 8's DBs;
+ 12. the GraphEncoder's remaining options at size t: the 'ramp' model
+     (Config(dilation_schedule='ramp', drop_path_schedule='ramp',
+     drop_path=0.1): dilations 1,1,1,1,2,2,2,2,3,3,3,3) on phase 4's
+     weights through fingerprint_waves at B = 128, unfused bf16 (4
+     mrconv_concat launches), fused bf16 (4 grapher_block) and fused f32 (2
+     + 2), each held to its f32 plain unfolded rows, timed beside phase 7's
+     reference model; five bf16 train steps at bsz_train = 256 (4 + 4
+     launches each, losses finite and falling, ms a step, peak memory); one
+     f32 step at B = 8 with the kernels against the plain versions (the
+     DropPath masks from one seed); one step with remat=True against
+     remat=False (equal losses, peak memory of each); knn_strategy
+     'exact', 'onehot' and 'approx' serving (no launch) held to phase 4's
+     kernel-path rows; EdgeConv, SAGE and GIN (no launch): a bf16 forward
+     at B = 128 against its f32 unfolded rows and a bf16 train step at 2B =
+     512 against the f32 step's loss (with remat); train_main of the
+     'ramp' model on phase 9's corpus for one epoch, resumed to epoch 2
+     against two uninterrupted epochs (bit for bit, 4 + 4 launches a
+     step).
 
 The line before the last is the card (nvidia-smi), the one before it the
 kernels' JSON (launches by path: the DB build's under "db_build", the
 entry points' under "cli", phase 10's under "baselines", phase 11's under
-"serve_int8" and "serve_int8_static"); the last line is
+"serve_int8" and "serve_int8_static", phase 12's under "ramp_*", "serve_*"
+and "train_*"); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1543,6 +1562,314 @@ def index_rest_phase(cat: dict, work: str, card: str) -> None:
             check(bool((hr[0] == 100).all()), f"{kind}: a clean db row misses itself")
 
 
+# --- phase 12: the GraphEncoder's remaining options ------------------------
+# the 'ramp' model: dilations 1,1,1,1,2,2,2,2,3,3,3,3, DropPath rising to 0.1
+RAMP = dict(dilation_schedule="ramp", drop_path_schedule="ramp", drop_path=0.1, k=K)
+RAMP_KERNEL_BLOCKS = 4                 # its dilation-1 blocks, stages 1 and 2
+# a conv's bf16 train step against the same step in f32 (2B = 512): the
+# loss within this relative difference (bf16 rows lie near cos 0.998 of the
+# f32 rows, and NT-Xent at tau 0.05 scales cosines by 20)
+CONV_LOSS_RTOL = 0.02
+
+
+def ramp_fusing(dtype: torch.dtype) -> int:
+    """How many of the 'ramp' model's kernel-path blocks (stages 1 and 2)
+    the fused block's guard admits in ``dtype``."""
+    from grafp_tpu_torch.ops.grapher_block import grapher_block_supported
+
+    return sum(nb for (n, c), nb in zip(STAGES[:2], BLOCKS[:2])
+               if grapher_block_supported(n, c, dtype, K))
+
+
+def expect(got: dict, want: dict, what: str) -> None:
+    """The launch counts ``got`` equal ``want``, every kernel not named 0."""
+    full = {**{name: 0 for name in got}, **want}
+    check(got == full, f"{what}: launches {got}, expected {full}")
+
+
+def conv_model(cfg, conv: str, train: bool = False):
+    """build_model(cfg)'s model on the card with its GraphEncoder built
+    with ``conv`` ('edge', 'sage', 'gin'), seeded: Config has no conv
+    option, as in the JAX package."""
+    from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.models.gnn import GraphEncoder
+    from grafp_tpu_torch.models.layers import init_parameters
+
+    model = build_model(cfg, train=train)
+    dtype = torch.bfloat16 if cfg["compute_dtype"] == "bfloat16" else None
+    model.encoder = GraphEncoder(in_features=cfg["n_filters"], k=K, conv=conv,
+                                 emb_dims=cfg["h"], dtype=dtype)
+    init_parameters(model.encoder, torch.Generator().manual_seed(20))
+    return model.cuda().train(train)
+
+
+def train_once(model, cfg, banks, x_i, x_j, seed: int):
+    """One train step of ``model`` on (x_i, x_j) from a fresh state, its
+    generator from ``seed``; returns (metrics, the step's peak GB)."""
+    from grafp_tpu_torch.train import create_train_state, make_train_step
+
+    state = create_train_state(model, cfg, steps_per_epoch=100)
+    step = make_train_step(model, cfg, banks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = step(state, x_i, x_j, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    return m, torch.cuda.max_memory_allocated() / 1e9
+
+
+def graph_options_phase(state_dict, waves, z16, banks, x_i, x_j, ref_ms: dict,
+                        work: str, zero_counts, counts, card: str) -> dict:
+    """Phase 12: the 'ramp' model (serving fused and unfused against its
+    f32 plain path, training, kernels vs plain versions, remat, a
+    train_main epoch and its resume on phase 9's corpus under ``work``),
+    the pair-layout strategies, and EdgeConv / SAGE / GIN, at full width.
+    ``state_dict`` is phase 4's calibrated weights, ``z16`` phase 4's
+    bf16 kernel-path rows of ``waves``, ``ref_ms`` phase 7's serving ms of
+    the reference model ('unfused', 'fused'). Returns the launch counts by
+    path."""
+    from grafp_tpu_torch.cli import train_main
+    from grafp_tpu_torch.core import Config, load_config
+    from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram
+    from grafp_tpu_torch.fp import FingerprintPipeline
+    from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.train import create_train_state, make_train_step
+    from grafp_tpu_torch.train.checkpoint import load_ckp
+
+    by_path = {}
+    cfg16, cfg32 = Config(compute_dtype="bfloat16", **RAMP), Config(**RAMP)
+    spec = log_mel_spectrogram(waves, LogMelConfig.from_config(cfg32))
+
+    # a. 'ramp' serving, folded, unfused and fused, against the f32 plain path
+    ref = build_model(cfg32, fuse_serving="off")
+    ref.load_state_dict(state_dict)
+    with plain_versions(), torch.no_grad():
+        _, z32p = ref(spec)
+    del ref
+    pipes = {}
+    for name, cfg, fuse in (("unfused bfloat16", cfg16, "off"),
+                            ("fused bfloat16", cfg16, "auto"),
+                            ("fused float32", cfg32, "auto")):
+        model = build_model(cfg, fuse_serving=fuse)
+        model.load_state_dict(state_dict)
+        pipe = FingerprintPipeline(model, cfg)
+        dtype = torch.bfloat16 if name.endswith("bfloat16") else torch.float32
+        fusing = ramp_fusing(dtype) if fuse == "auto" else 0
+        zero_counts()
+        z = pipe.fingerprint_waves(waves)
+        torch.cuda.synchronize()
+        got = counts()
+        path = "ramp_serve" + (f"_fused_{name.split()[1]}" if fuse == "auto" else "")
+        by_path[path] = got
+        print(f"ramp serving {name} B={B}: launches {got}", flush=True)
+        expect(got, {"grapher_block": fusing,
+                     "mrconv_concat": RAMP_KERNEL_BLOCKS - fusing}, f"ramp serving {name}")
+        check(z.shape == (B, cfg.d) and bool(torch.isfinite(z).all()), f"ramp {name}: bad z")
+        if dtype == torch.bfloat16:
+            hold_rows(f"ramp {name} (folded) vs f32 plain unfolded", z, z32p,
+                      COS_MIN_FLOOR, COS_MEAN_FLOOR)
+            pipes[name.split()[0]] = pipe
+        else:
+            hold_rows(f"ramp {name} (folded) vs f32 plain unfolded", z, z32p, F32_COS)
+    ms = {name: [] for name in pipes}
+    for _ in range(2):                                        # in turns
+        for name, pipe in pipes.items():
+            ms[name].append(time_ms(lambda: pipe.fingerprint_waves(waves), reps=10))
+    for name, pipe in pipes.items():
+        wall = sum(ms[name]) / 2
+        print(f"ramp serving {name} bf16 B={B}: {ms[name][0]:.3f}, {ms[name][1]:.3f} ms = "
+              f"{B / wall * 1e3:.1f} fp/s; the reference model, phase 7: "
+              f"{ref_ms[name]:.3f} ms = {B / ref_ms[name] * 1e3:.1f} fp/s [{card}]",
+              flush=True)
+        print_profile(f"ramp serving {name} bf16 B={B}", wall,
+                      lambda: pipe.fingerprint_waves(waves), card)
+    del pipes
+    torch.cuda.empty_cache()
+
+    # b. the pair layout: 'exact', 'onehot', 'approx' launch no kernel
+    for strategy in ("exact", "onehot", "approx"):
+        cfg = Config(compute_dtype="bfloat16", knn_strategy=strategy)
+        model = build_model(cfg)
+        model.load_state_dict(state_dict)
+        pipe = FingerprintPipeline(model, cfg)
+        zero_counts()
+        z = pipe.fingerprint_waves(waves)
+        torch.cuda.synchronize()
+        got = counts()
+        by_path[f"serve_{strategy}"] = got
+        expect(got, {}, f"knn_strategy {strategy}")
+        hold_rows(f"knn_strategy {strategy} bf16 vs the kernel path (phase 4)", z, z16,
+                  COS_MIN_FLOOR, COS_MEAN_FLOOR)
+        t = time_ms(lambda: pipe.fingerprint_waves(waves), reps=3, warmup=1)
+        print(f"serving knn_strategy {strategy} bf16 B={B}: launches {got}; {t:.3f} ms = "
+              f"{B / t * 1e3:.1f} fp/s [{card}]", flush=True)
+        del model, pipe
+    torch.cuda.empty_cache()
+
+    # c. 'ramp' training: five bf16 steps at bsz_train on one fixed batch
+    bsz = x_i.shape[0]
+    tmodel = build_model(cfg16, generator=torch.Generator().manual_seed(5), train=True)
+    state = create_train_state(tmodel, cfg16, steps_per_epoch=100)
+    step = make_train_step(tmodel, cfg16, banks)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    losses, total = [], {}
+    for i in range(TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        m = step(state, x_i, x_j, gen)
+        torch.cuda.synchronize()
+        got = counts()
+        expect(got, {"mrconv_concat": RAMP_KERNEL_BLOCKS,
+                     "mrconv_concat_backward": RAMP_KERNEL_BLOCKS}, f"ramp train step {i}")
+        total = {k: total.get(k, 0) + n for k, n in got.items()}
+        losses.append(m["loss"].item())
+        print(f"ramp train step {i}: loss {losses[-1]:.6f} grad norm "
+              f"{m['grad_norm'].item():.4f}, launches {got}", flush=True)
+    by_path["ramp_train"] = total
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), "a ramp train loss is not finite")
+    check(losses[-1] < losses[0], f"ramp train losses do not fall: {losses}")
+    t_step = time_ms(lambda: step(state, x_i, x_j, gen), reps=3, warmup=1)
+    print(f"ramp train step bf16 bsz_train={bsz}: {t_step:.3f} ms, "
+          f"{bsz / t_step * 1e3:.1f} samples/s; peak memory {peak:.2f} GB "
+          f"(max_memory_allocated) [{card}]", flush=True)
+    del tmodel, state, step
+    torch.cuda.empty_cache()
+
+    # d. one f32 step at B = 8 with the kernels against the plain versions,
+    # the DropPath masks drawn from one seed on both sides
+    kmodel = build_model(cfg32, generator=torch.Generator().manual_seed(8), train=True)
+    pmodel = copy.deepcopy(kmodel)
+    gs = torch.Generator(device="cuda").manual_seed(13)
+    xs_i = torch.randn(PARITY_B, cfg32.clip_frames, device="cuda", generator=gs)
+    xs_j = xs_i + 0.3 * torch.randn(PARITY_B, cfg32.clip_frames, device="cuda", generator=gs)
+    mk, _ = train_once(kmodel, cfg32, None, xs_i, xs_j, seed=14)
+    before = counts()
+    with plain_versions():
+        mp, _ = train_once(pmodel, cfg32, None, xs_i, xs_j, seed=14)
+    check(counts() == before, "the plain ramp step launched a kernel")
+    lk, lp = mk["loss"].item(), mp["loss"].item()
+    gk, gp = mk["grad_norm"].item(), mp["grad_norm"].item()
+    cos_min = min(((a.grad * b.grad).sum() / (a.grad.norm() * b.grad.norm())).item()
+                  for a, b in zip(kmodel.parameters(), pmodel.parameters())
+                  if b.grad.abs().max().item() >= 1e-4 * gp)
+    print(f"ramp train step f32 B={PARITY_B}, kernels vs plain: loss {lk:.7f} vs {lp:.7f}, "
+          f"grad norm {gk:.5f} vs {gp:.5f}, min gradient cos {cos_min:.7f}", flush=True)
+    check(abs(lk - lp) <= LOSS_RTOL * abs(lp), "ramp train loss differs from plain")
+    check(abs(gk - gp) <= GNORM_RTOL * gp, "ramp grad norm differs from plain")
+    check(cos_min > GRAD_COS, "a ramp gradient differs from plain")
+    del kmodel, pmodel
+
+    # e. remat against no remat: one bf16 step at bsz_train each, one seed
+    res = {}
+    for remat in (False, True):
+        cfg = Config(compute_dtype="bfloat16", remat=remat, **RAMP)
+        model = build_model(cfg, generator=torch.Generator().manual_seed(15), train=True)
+        res[remat] = train_once(model, cfg, banks, x_i, x_j, seed=16)
+        del model
+        torch.cuda.empty_cache()
+    (m0, p0), (m1, p1) = res[False], res[True]
+    print(f"ramp remat bf16 bsz_train={bsz}: loss {m0['loss'].item():.7f} without, "
+          f"{m1['loss'].item():.7f} with; grad norm {m0['grad_norm'].item():.5f} / "
+          f"{m1['grad_norm'].item():.5f}; peak memory of the step {p0:.2f} GB without, "
+          f"{p1:.2f} GB with remat [{card}]", flush=True)
+    check(torch.equal(m0["loss"], m1["loss"]), "remat changed the loss")
+
+    # f. EdgeConv, SAGE, GIN: a bf16 forward at B and a bf16 step at 2B, each
+    # against its f32 plain path; EdgeConv's tree is the MRConv's, so it
+    # takes phase 4's weights, SAGE and GIN seeded, calibrated ones. The f32
+    # step runs with remat, which changes no loss (e.): without it
+    # EdgeConv's f32 step at 512 pairs comes close to the card's 80 GB
+    cfg16c, cfg32c = Config(compute_dtype="bfloat16"), Config()
+    for conv in ("edge", "sage", "gin"):
+        m32 = conv_model(cfg32c, conv)
+        if conv == "edge":
+            m32.load_state_dict(state_dict)
+        else:
+            randomize(m32, torch.Generator().manual_seed(21))
+            shared().calibrate(m32, clip_spec(cfg32c, 256, seed=22))
+        weights = {k: v.detach().clone() for k, v in m32.state_dict().items()}
+        m16 = conv_model(cfg16c, conv)
+        m16.load_state_dict(weights)
+        pipe = FingerprintPipeline(m16, cfg16c)
+        zero_counts()
+        z = pipe.fingerprint_waves(waves)
+        torch.cuda.synchronize()
+        got = counts()
+        with torch.no_grad():
+            _, zp = m32(spec)
+        expect(got, {}, f"{conv} serving")
+        by_path[f"serve_{conv}"] = got
+        hold_rows(f"{conv} bf16 (folded) vs f32 unfolded", z, zp,
+                  COS_MIN_FLOOR, COS_MEAN_FLOOR)
+        t = time_ms(lambda: pipe.fingerprint_waves(waves), reps=3, warmup=1)
+        del m16, m32, pipe
+        torch.cuda.empty_cache()
+        steps = {}
+        for name, cfg in (("bf16", cfg16c), ("f32 remat", cfg32c)):
+            model = conv_model(cfg, conv, train=True)
+            model.encoder.remat = name == "f32 remat"
+            model.load_state_dict(weights)
+            zero_counts()
+            steps[name] = train_once(model, cfg, banks, x_i, x_j, seed=23)
+            expect(counts(), {}, f"{conv} train step {name}")
+            del model
+            torch.cuda.empty_cache()
+        by_path[f"train_{conv}"] = counts()
+        (ms16, p16), (ms32, p32) = steps["bf16"], steps["f32 remat"]
+        l16, l32 = ms16["loss"].item(), ms32["loss"].item()
+        print(f"conv {conv}: serving bf16 B={B} {t:.3f} ms = {B / t * 1e3:.1f} fp/s; train "
+              f"step 2B={2 * bsz}: loss bf16 {l16:.6f} vs f32 {l32:.6f} (rel "
+              f"{abs(l16 - l32) / abs(l32):.2e}), grad norm {ms16['grad_norm'].item():.4f} "
+              f"vs {ms32['grad_norm'].item():.4f}, peak {p16:.2f} GB (bf16) / {p32:.2f} GB "
+              f"(f32 with remat) [{card}]",
+              flush=True)
+        check(np.isfinite(l16) and abs(l16 - l32) <= CONV_LOSS_RTOL * abs(l32),
+              f"{conv}: the bf16 step's loss is not the f32 step's")
+
+    # g. train_main of the 'ramp' model on phase 9's corpus: one epoch, its
+    # resume to epoch 2 against two uninterrupted epochs
+    cfg = load_config(os.path.join(work, "smoke.yaml"))
+    for key, val in RAMP.items():
+        cfg[key] = val
+    cfg.save(os.path.join(work, "ramp.yaml"))
+    steps = CLI_CORPUS["train"][0] // int(cfg["bsz_train"])
+    log = os.path.join(work, "cli.log")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        common = ["--config", "ramp.yaml", "--seed", "42", "--validate_every", "0"]
+        runs = {}
+        for name, argv, epochs in (
+                ("one epoch", ["--ckp", "ramp", "--epochs", "1"], 1),
+                ("resumed", ["--ckp", "ramp", "--epochs", "2", "--resume",
+                             "checkpoint/model_ramp_current.pth"], 1),
+                ("uninterrupted", ["--ckp", "ramp_two", "--epochs", "2"], 2)):
+            zero_counts()
+            t0 = time.perf_counter()
+            runs[name] = run_cli(train_main.main, common + argv, log)
+            torch.cuda.synchronize()
+            got = counts()
+            print(f"cli ramp train {name}: {time.perf_counter() - t0:.3f} s, losses "
+                  f"{runs[name]['loss']}, launches {got} [{card}]", flush=True)
+            check(all(np.isfinite(runs[name]["loss"])), f"cli ramp {name}: a loss is not finite")
+            expect(got, {"mrconv_concat": RAMP_KERNEL_BLOCKS * steps * epochs,
+                         "mrconv_concat_backward": RAMP_KERNEL_BLOCKS * steps * epochs},
+                   f"cli ramp {name}")
+            by_path[f"ramp_cli_{name.replace(' ', '_')}"] = got
+        resumed = load_ckp("checkpoint/model_ramp_current.pth")
+        two = load_ckp("checkpoint/model_ramp_two_current.pth")
+        diff = max_state_diff(resumed["state_dict"], two["state_dict"])
+        print(f"cli ramp resume: epoch 2 loss resumed {runs['resumed']['loss']} vs "
+              f"uninterrupted {runs['uninterrupted']['loss'][1:]}; largest |d| of the "
+              f"parameters and statistics {diff:.3g} (tolerance {RESUME_TOL:g})", flush=True)
+        check(resumed["step"] == two["step"] and diff <= RESUME_TOL,
+              f"the resumed ramp run differs by {diff}")
+    finally:
+        os.chdir(cwd)
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1995,16 +2322,30 @@ def main() -> int:
                 launches[name]["baselines"] = 0           # each step checked none
             print(f"phase 10 took {time.perf_counter() - t10:.1f} s")
 
-        # 11. int8 serving, then the rest of the index family on phase 8's
-        # catalogue
-        print(f"phase 11 at {time.perf_counter() - t_all:.1f} s", flush=True)
-        t11 = time.perf_counter()
-        for path, n in int8_phase(serve_state, waves, zero_counts, counts, card).items():
-            launches["mrconv_concat"][path] = n
-            launches["grapher_block"][path] = 0               # checked none
-        torch.cuda.empty_cache()
-        index_rest_phase(catalogue, eval_work, card)
-        print(f"phase 11 took {time.perf_counter() - t11:.1f} s")
+            # 11. int8 serving, then the rest of the index family on phase
+            # 8's catalogue
+            print(f"phase 11 at {time.perf_counter() - t_all:.1f} s", flush=True)
+            t11 = time.perf_counter()
+            for path, n in int8_phase(serve_state, waves, zero_counts, counts, card).items():
+                launches["mrconv_concat"][path] = n
+                launches["grapher_block"][path] = 0               # checked none
+            torch.cuda.empty_cache()
+            index_rest_phase(catalogue, eval_work, card)
+            del catalogue
+            torch.cuda.empty_cache()
+            print(f"phase 11 took {time.perf_counter() - t11:.1f} s")
+
+            # 12. the GraphEncoder's remaining options; the CLI on phase 9's
+            # corpus
+            print(f"phase 12 at {time.perf_counter() - t_all:.1f} s", flush=True)
+            t12 = time.perf_counter()
+            for path, got in graph_options_phase(
+                    serve_state, waves, z16, banks, x_i, x_j,
+                    {"unfused": t_fwd, "fused": t_fused}, work, zero_counts, counts,
+                    card).items():
+                for name in wrappers:
+                    launches[name][path] = got[name]
+            print(f"phase 12 took {time.perf_counter() - t12:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     sources = {"mrconv_concat": ("mrconv_concat.cu", "grafp_tpu/ops/pallas_knn.py:376"),

@@ -9,7 +9,10 @@ that both packages compute the same function. Layout changes:
 * dense kernels (``.../Dense_0/kernel``, ``projector/fc*/kernel``) (I, O)
   -> (O, I);
 * ``down{i}/conv/kernel`` (3, I, O) -> (O, I, 3);
-* ``gconv/GroupedPointwiseConv_0/kernel`` keeps its (g, I/g, O/g) layout;
+* grouped kernels keep their (g, I/g, O/g) layout: ``gconv/
+  GroupedPointwiseConv_0/kernel`` (MRConv, EdgeConv, GIN) and SAGE's
+  ``gconv/nn1/kernel`` and ``gconv/nn2/kernel``, told from a Downsample's
+  3-D kernel by their owner; GIN's 0-d ``gconv/eps`` keeps its name;
 * BatchNorm {scale, bias} + batch_stats {mean, var} -> {weight, bias,
   running_mean, running_var};
 * LayerNorm ``scale`` -> ``weight`` (the AST's, (D,)); NAFP's full-shape
@@ -30,6 +33,9 @@ import torch.nn as nn
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
+# owners of grouped (g, I/g, O/g) kernels: the auto-named grouped conv of
+# MRConv, EdgeConv and GIN, and SAGE's two named ones
+_GROUPED = ("GroupedPointwiseConv_0", "nn1", "nn2")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -51,10 +57,12 @@ def _port_entry(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray
         if mods and mods[-1] == "BatchNorm_0":
             mods[-1] = "bn"           # MRConv's auto-named BatchNorm wrapper
         return ".".join(mods + [_BN_LEAVES[leaf]]), arr
+    grouped = bool(mods) and mods[-1] in _GROUPED
     if mods and mods[-1] == "Dense_0":
         mods.pop()
-    if mods and mods[-1] == "GroupedPointwiseConv_0":
-        mods[-1] = "conv"
+    if grouped:
+        if mods[-1] == "GroupedPointwiseConv_0":
+            mods[-1] = "conv"
     elif leaf in ("scale", "bias") and arr.ndim == 3:     # (H, W, C) -> (C, H, W)
         arr = arr.transpose(2, 0, 1)
     elif leaf == "kernel":

@@ -9,9 +9,13 @@ mode
 and the BatchNorm pass can go. ``fold_batch_norms`` returns a copy of a
 ``SimCLRModel`` in which every such pair is one linear map with a bias
 and the BatchNorm is gone: the stem, the Downsamples, the FFNs' fc1/fc2,
-and the Grapher's fc1/gconv/fc2 (a fused Grapher reads the folded
-weights through ``Grapher.folded_weights`` as before). The bias-free stem
-and FFN linears take the shift as a new bias.
+and the Grapher's fc1, fc2 and graph conv (the grouped conv of MRConv in
+either layout, EdgeConv and GIN; a fused Grapher reads the folded weights
+through ``Grapher.folded_weights`` as before). The bias-free stem and FFN
+linears take the shift as a new bias. SAGE's ``nn1_bn`` and ``nn2_bn``
+stay: the JAX fold knows no such site (``grafp_tpu/models/fold_bn.py:
+linear_for`` raises on them), and the serving path, which always folds,
+must still serve the model.
 
 Under int8 serving (``quant``) the fold commutes with the weight
 quantisation: a channel's BatchNorm scale s multiplies its weight column,
@@ -91,12 +95,12 @@ def fold_batch_norms(model: nn.Module) -> nn.Module:
             # PointwiseConv (out, in); nn.Conv1d (out, in, 3)
             _fold(lin, bn, (-1,) + (1,) * (lin.weight.dim() - 1))
             setattr(m, bn_name, nn.Identity())
-        if isinstance(m, Grapher) and isinstance(m.gconv.bn, BatchNorm):
+        gconv = m.gconv if isinstance(m, Grapher) else None
+        if isinstance(getattr(gconv, "bn", None), BatchNorm):
             # grouped (g, cig, cog): the BN channel is the flattened (g, cog)
-            conv = m.gconv.conv
-            g, _, cog = conv.weight.shape
-            _fold(conv, m.gconv.bn, (g, 1, cog))
-            m.gconv.bn = nn.Identity()
+            g, _, cog = gconv.conv.weight.shape
+            _fold(gconv.conv, gconv.bn, (g, 1, cog))
+            gconv.bn = nn.Identity()
     for m in out.modules():
         if isinstance(m, (Grapher, GroupedPointwiseConv, PointwiseConv)):
             m.freeze()

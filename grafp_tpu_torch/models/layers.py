@@ -23,8 +23,9 @@ kernel.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -302,14 +303,18 @@ def grouped_as_concat_dense(w: torch.Tensor, c_in: int, c_out: int) -> torch.Ten
 
 
 class GroupedPointwiseConv(_Int8Linear):
-    """Grouped 1x1 conv (reference BasicConv, groups=4) as one dense matmul
-    with an f32 result plus the f32 bias. With ``concat_interleaved`` (the
-    MRConv form) it is applied to the concat layout [x || rel - x] that the
-    MRConv kernel emits, the reference's channel interleave absorbed in the
-    dense weight's rows; without it, to the grouped conv's own channel
-    layout (block-diagonal). The parameters keep the reference's grouped
-    (g, cig, cog) layout; the dense weight is rebuilt from them on every
-    forward, so gradients reach them and it never goes stale.
+    """Grouped 1x1 conv (reference BasicConv, groups=4) with an f32 result
+    plus the f32 bias. With ``concat_interleaved`` (the MRConv kernel
+    path's form) it is one dense matmul on the concat layout [x || rel - x]
+    that the MRConv kernel emits, the reference's channel interleave
+    absorbed in the dense weight's rows, rebuilt from the grouped weight on
+    every forward so that gradients reach it and it never goes stale.
+    Without it (the pair-layout MRConv, EdgeConv, SAGE, GIN) it is the
+    grouped product on the conv's own consecutive-block channel layout,
+    computed as the JAX package computes it off the TPU: operands in the
+    compute dtype, multiplied and summed in f32, the cotangent kept in f32
+    (``grafp_tpu/models/layers.py:347-360``). The parameters keep the
+    reference's grouped (g, cig, cog) layout.
 
     ``quant`` (eval only, ``quant_mode``): the int8 product of the same
     dense weight (its off-block zeros quantise to 0, so the per-output
@@ -348,20 +353,27 @@ class GroupedPointwiseConv(_Int8Linear):
         return cast(self.dense_io(), self.dtype)
 
     def freeze(self) -> None:
-        """Keep the weight the forward would rebuild (the dense weight in the
-        compute dtype, or under int8 the quantised weight and its scales) as
-        buffers (moved by ``.to``, not saved), for a serving copy whose
-        parameters no longer change (``models/fold_bn.py``)."""
+        """Keep the weight the forward would rebuild (the concat layout's
+        dense weight in the compute dtype, or under int8 the quantised
+        weight and its scales) as buffers (moved by ``.to``, not saved), for
+        a serving copy whose parameters no longer change
+        (``models/fold_bn.py``)."""
         if self.quant in ("dynamic", "static"):
             self.freeze_int8()
-            return
-        with torch.no_grad():
-            self.register_buffer("frozen_dense", self.dense_weight().detach().clone(),
-                                 persistent=False)
+        elif self.concat_interleaved:
+            with torch.no_grad():
+                self.register_buffer("frozen_dense", self.dense_weight().detach().clone(),
+                                     persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant:
             return self._quant_forward(x, self.bias)
+        if not self.concat_interleaved:
+            g, cig, cog = self.weight.shape
+            xg = cast(x, self.dtype).reshape(*x.shape[:-1], g, cig)
+            y = torch.einsum("...gi,gio->...go", xg.float(),
+                             cast(self.weight, self.dtype).float())
+            return y.reshape(*x.shape[:-1], g * cog) + self.bias
         w = self._buffers.get("frozen_dense")
         if w is None:
             w = self.dense_weight()
@@ -375,8 +387,9 @@ class BatchNorm(nn.Module):
     Training: statistics of this batch over every axis but the last,
     mean and the fast variance E[x^2] - E[x]^2 clipped at 0; the running
     statistics take ``0.9 * running + 0.1 * batch`` with the BIASED batch
-    variance (torch's F.batch_norm would store the unbiased one). Eval:
-    the running statistics."""
+    variance (torch's F.batch_norm would store the unbiased one), unless
+    ``update_stats`` is off (``frozen_statistics``). Eval: the running
+    statistics."""
 
     def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -385,6 +398,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.float32)
@@ -392,11 +406,12 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean = x32.mean(axes)
             var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
-                                        + (1 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var
-                                       + (1 - BN_MOMENTUM) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                            + (1 - BN_MOMENTUM) * mean)
+                    self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                           + (1 - BN_MOMENTUM) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + BN_EPS) * self.weight
@@ -410,6 +425,74 @@ class BatchNorm(nn.Module):
         operation)."""
         s = self.weight * torch.rsqrt(self.running_var + BN_EPS)
         return s, self.bias - self.running_mean * s
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module) -> Iterator[None]:
+    """Inside: the train-mode BatchNorms of ``module`` normalise with the
+    batch's statistics but leave their running statistics alone. The
+    recompute of a rematerialised block runs in it, so that a step updates
+    them once, as flax discards the recompute's mutation (``nn.remat``)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (``grafp_tpu/models/layers.py:482-498``):
+    the identity in eval or at rate 0; in train each sample is kept with
+    probability keep = 1 - rate, as x / keep, and zeroed otherwise. The
+    mask is drawn from ``generator``, the train step's own, which
+    ``drop_path_generator`` sets for one forward (the JAX step hands its key
+    to the model as ``rngs={"droppath": key}``), never from the global
+    generator: a train-mode draw without one raises."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def mask(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The (B, 1, ..., 1) bool keep mask for x, one uniform draw per
+        sample below keep; None where the path is the identity."""
+        if not self.training or self.rate == 0.0:
+            return None
+        if self.generator is None:
+            raise RuntimeError("DropPath in train mode draws from the train step's "
+                               "generator: run the forward inside drop_path_generator")
+        u = torch.rand((x.shape[0],), generator=self.generator,
+                       device=self.generator.device)
+        return (u < 1.0 - self.rate).to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x with the samples of ``mask`` (drawn here when None) kept as x /
+        keep; keep is rounded to x's dtype first, as JAX's weakly typed
+        Python float is, and divides as a device tensor (``_by_127``)."""
+        if mask is None:
+            mask = self.mask(x)
+        if mask is None:
+            return x
+        keep = torch.full((), 1.0 - self.rate, dtype=x.dtype, device=x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+@contextlib.contextmanager
+def drop_path_generator(model: nn.Module, generator: torch.Generator) -> Iterator[None]:
+    """Inside: every DropPath of ``model`` draws its masks from
+    ``generator`` (the train step's forward runs in it)."""
+    paths = [m for m in model.modules() if isinstance(m, DropPath)]
+    for m in paths:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in paths:
+            m.generator = None
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:

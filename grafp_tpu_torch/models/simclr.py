@@ -63,9 +63,14 @@ class SimCLRModel(nn.Module):
 
 
 def _check_kernel_shapes(cfg) -> None:
-    """Refuse a Config whose first Grapher the CUDA selection cannot run:
-    k above MAX_K, or k * N above MAX_KN for the stage-1 node count N (the
-    JAX kernels need only N >= k, ``pallas_knn.py:184,381,594``)."""
+    """Refuse a Config whose kernel-path Graphers the CUDA selection cannot
+    run: k above MAX_K, or k * N above MAX_KN for the stage-1 node count N
+    (the JAX kernels need only N >= k, ``pallas_knn.py:184,381,594``).
+    Under 'auto' and 'pallas' block 0 is one of them whatever the schedule
+    (its dilation is 1) and has the most nodes; 'exact', 'approx' and
+    'onehot' launch no kernel."""
+    if cfg["knn_strategy"] not in ("auto", "pallas"):
+        return
     k = int(cfg["k"])
     kh = int(cfg["blur_kernel"][0])
     rows = (int(cfg["n_mels"]) + 2 * (kh // 2) - kh) // int(cfg["peak_stride"]) + 1
@@ -90,7 +95,11 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
     ``fuse_serving`` goes to every Grapher ('auto': the fused block on the
     card, the unfused path on the CPU). On a CUDA device a Config whose
     grafp k or node count the kernels do not take is refused here (the
-    baselines launch none of them).
+    baselines, and 'exact', 'approx' and 'onehot', launch none of them).
+    The grafp encoder takes the Config's schedules (``dilation_schedule``,
+    ``drop_path``, ``drop_path_schedule``), ``knn_strategy`` (an unknown
+    one raises ValueError), ``knn_block_size`` and ``remat``, as the JAX
+    package's does (``grafp_tpu/models/simclr.py:98-100``).
 
     ``serve_quant`` (none | int8 | int8_static | int8_calibrate, else
     ValueError) makes the grafp encoder's convs int8 for serving
@@ -113,14 +122,6 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
     quant = _QUANT[serve_quant]
     if quant and arch != "grafp":
         raise NotImplementedError("serve_quant int8 supports arch=grafp only")
-    strategy = cfg["knn_strategy"]
-    if arch == "grafp" and strategy not in ("auto", "pallas"):
-        # the JAX Grapher runs the pair-layout MRConv for these
-        # (grafp_tpu/models/gnn.py:262-287); the port's Grapher always
-        # runs the kernel
-        raise NotImplementedError(
-            f"knn_strategy {strategy!r}: the pair-layout Grapher is a later "
-            "slice of the port ('auto' and 'pallas' run the kernel)")
     name = cfg["compute_dtype"] or "float32"
     if name not in _DTYPES:
         raise ValueError(f"compute_dtype must be float32|bfloat16, got {name!r}")
@@ -129,7 +130,10 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
         encoder, h = GraphEncoder(
             in_features=cfg["n_filters"], size=cfg["size"], k=int(cfg["k"]),
             emb_dims=cfg["h"], dilation_schedule=cfg["dilation_schedule"],
-            drop_path_schedule=cfg["drop_path_schedule"], dtype=dtype,
+            drop_path=float(cfg["drop_path"]),
+            drop_path_schedule=cfg["drop_path_schedule"],
+            knn_block_rows=int(cfg["knn_block_size"]),
+            knn_strategy=cfg["knn_strategy"], remat=bool(cfg["remat"]), dtype=dtype,
             fuse_serving=fuse_serving, quant=quant), cfg["h"]
     else:
         # the JAX projector takes the encoder's width, whatever cfg['h'] says

@@ -7,11 +7,18 @@ product and a top-k, self included. The graph is a function of the
 features with gradients stopped (the reference builds it under no_grad,
 torch_edge.py:15). Indices are int64, PyTorch's index dtype (the JAX
 package returns int32), nearest first.
+
+Selection order is part of the result: ``lax.top_k`` puts the lower index
+first among equal values, and a dilated graph (``[..., ::d]``) keeps other
+neighbours under another order. ``torch.topk`` promises no order among
+ties (on the card it differs from the CPU's), so ``topk_lower_first``
+selects on a composite int64 key, the value's order-preserving bits then
+the reversed index, which is exact and gives the JAX order on both devices.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,13 +51,33 @@ def dilate_neighbors(idx: torch.Tensor, dilation: int) -> torch.Tensor:
     return idx[..., ::dilation]
 
 
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order f32 ``x`` along the last axis by value, then
+    the lower index first among equal values: the value's order-preserving
+    bits in the high word, n - 1 - index in the low word."""
+    n = x.shape[-1]
+    bits = (x.to(torch.float32) + 0.0).contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    key.mul_(1 << 32)
+    return key.add_(torch.arange(n - 1, -1, -1, device=x.device))
+
+
+def topk_lower_first(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest values of f32 ``x`` along the last axis, largest
+    first, the lower index first among equal values (``lax.top_k``'s
+    order). -0.0 counts as 0.0; NaN is not expected."""
+    idx = torch.topk(_order_key(x), k, dim=-1).indices
+    return torch.gather(x, -1, idx), idx
+
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def knn_graph(x: torch.Tensor, k: int, block_rows: int = 0,
               compute_dtype: str = "float32") -> torch.Tensor:
     """Indices (B, N, k) of the k nearest nodes of every node (by L2 on
-    channel-normalised features, self included), nearest first.
+    channel-normalised features, self included), nearest first, the lower
+    index first among equal scores (``topk_lower_first``).
 
     ``block_rows`` 0 builds the dense (B, N, N) similarity; > 0 takes the
     query rows in tiles of that many, bounding the similarity at
@@ -61,10 +88,10 @@ def knn_graph(x: torch.Tensor, k: int, block_rows: int = 0,
     n = xn.shape[1]
     if block_rows and block_rows < n:
         return torch.cat([
-            torch.topk(torch.matmul(xn[:, r0:r0 + block_rows], xn.transpose(1, 2)),
-                       k, dim=-1).indices
+            topk_lower_first(torch.matmul(xn[:, r0:r0 + block_rows], xn.transpose(1, 2)),
+                             k)[1]
             for r0 in range(0, n, block_rows)], dim=1)
-    return torch.topk(torch.matmul(xn, xn.transpose(1, 2)), k, dim=-1).indices
+    return topk_lower_first(torch.matmul(xn, xn.transpose(1, 2)), k)[1]
 
 
 def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,8 @@ reference builds its graphs under no_grad, torch_edge.py:15).
   'exact'   top-k of the f32 similarity + gather (reference semantics).
   'approx'  the JAX package's ``lax.approx_max_k``, a TPU partial-reduction
             top-k; off the TPU JAX computes an exact top-k, and so does
-            the port: ``torch.topk`` on the similarity in ``compute_dtype``
-            keys.
+            the port: ``topk_lower_first`` (``lax.top_k``'s order) on the
+            similarity in ``compute_dtype`` keys.
   'onehot'  k rounds of row argmax, pick the neighbour, mask it: exact
             k-NN max. The JAX package extracts the row with a one-hot
             product; the port gathers it, which is the same value for
@@ -26,7 +26,12 @@ from __future__ import annotations
 
 import torch
 
-from grafp_tpu_torch.ops.knn import gather_neighbors, knn_graph, l2_normalize
+from grafp_tpu_torch.ops.knn import (
+    gather_neighbors,
+    knn_graph,
+    l2_normalize,
+    topk_lower_first,
+)
 from grafp_tpu_torch.ops.max_neighbors import MaxNeighbors
 
 
@@ -44,7 +49,7 @@ def max_neighbors_exact(x: torch.Tensor, k: int,
 
 def max_neighbors_approx(x: torch.Tensor, k: int,
                          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    idx = torch.topk(_similarity(x, compute_dtype), k, dim=-1).indices
+    idx = topk_lower_first(_similarity(x, compute_dtype), k)[1]
     return torch.amax(gather_neighbors(x, idx), dim=2)
 
 

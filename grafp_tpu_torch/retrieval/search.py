@@ -11,8 +11,9 @@ candidates out of a block's top-k.
 Selection order is part of the result: ``lax.top_k`` puts the lower index
 first among equal values, and the sequence eval's hit rates depend on it.
 ``torch.topk`` promises no order among ties, so ``topk_lower_first``
-selects on a composite int64 key (the value's order-preserving bits, then
-the reversed index), which is exact and gives the JAX order.
+(``ops/knn.py``, shared with the k-NN graph) selects on a composite int64
+key (the value's order-preserving bits, then the reversed index), which is
+exact and gives the JAX order.
 
 ``scan_topk='approx'`` selects each block's candidates with the semantics
 of ``lax.approx_max_k`` on a TPU (``topk_approx``; Chern et al., "TPU-KNN",
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from grafp_tpu_torch.core.device import resolve_device
+from grafp_tpu_torch.ops.knn import _order_key, topk_lower_first
 
 # Rows per scored block, shared by the index family and the streaming
 # scan. A block of 1024 queries (index.QUERY_CHUNK) by 2^20 rows holds a
@@ -40,25 +42,6 @@ from grafp_tpu_torch.core.device import resolve_device
 # (chip_smoke.py). (The JAX package's 1M-row floor was a TPU v5e slow
 # path for smaller f32 blocks; it has no counterpart here.)
 DB_BLOCK_ROWS = 1 << 20
-
-
-def _order_key(x: torch.Tensor) -> torch.Tensor:
-    """int64 keys that order f32 ``x`` along the last axis by value, then
-    the lower index first among equal values: the value's order-preserving
-    bits in the high word, n - 1 - index in the low word."""
-    n = x.shape[-1]
-    bits = (x.to(torch.float32) + 0.0).contiguous().view(torch.int32)
-    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    key.mul_(1 << 32)
-    return key.add_(torch.arange(n - 1, -1, -1, device=x.device))
-
-
-def topk_lower_first(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k largest values of f32 ``x`` along the last axis, largest
-    first, the lower index first among equal values (``lax.top_k``'s
-    order). -0.0 counts as 0.0; NaN is not expected."""
-    idx = torch.topk(_order_key(x), k, dim=-1).indices
-    return torch.gather(x, -1, idx), idx
 
 
 def approx_bins(n: int, k: int, recall_target: float) -> int:

@@ -7,7 +7,9 @@
 Both views go through the model as one 2B batch, so BatchNorm statistics
 are joint over (x_i, x_j), as in the JAX package (the reference runs two
 forwards, simclr.py:29-45). The augment and the log-mel take no
-gradient.
+gradient. The step's generator feeds the augment and then the model's
+DropPath masks ('ramp' schedule), as the JAX step's key feeds both
+(``grafp_tpu/train/step.py:55-67``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from grafp_tpu_torch.core.device import resolve_device
 from grafp_tpu_torch.dsp.augment import AugmentBanks, augment_waveforms
 from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram
+from grafp_tpu_torch.models.layers import drop_path_generator
 from grafp_tpu_torch.train.loss import ntxent_loss
 from grafp_tpu_torch.train.state import TrainState
 
@@ -36,7 +39,8 @@ def make_train_step(model: torch.nn.Module, cfg,
 
     step(state, x_i, x_j, generator) -> {"loss", "grad_norm"}
       x_i, x_j: (B, T) f32 raw waveforms (x_j before augmentation);
-      generator: the torch.Generator the augment draws from. Updates
+      generator: the torch.Generator the augment, then DropPath, draw
+      from. Updates
       ``state`` (parameters, BatchNorm running statistics, optimizer,
       step) in place; the metrics are 0-d f32 tensors on the device."""
     dev = resolve_device(device)
@@ -59,7 +63,8 @@ def make_train_step(model: torch.nn.Module, cfg,
             if banks is not None:
                 x_j = augment_waveforms(x_j, banks, generator, snr, ir_p, noise_p)
             spec = log_mel_spectrogram(torch.cat([x_i, x_j]), mcfg)
-        _, z = model.train()(spec)
+        with drop_path_generator(model, generator):
+            _, z = model.train()(spec)
         b = x_i.shape[0]
         loss = ntxent_loss(z[:b], z[b:], tau)
         state.optimizer.zero_grad(set_to_none=True)

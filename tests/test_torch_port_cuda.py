@@ -625,3 +625,20 @@ def test_int_mm_shape_rules_raise_clearly(card, shape):
     qw, sw = quantize_weight(torch.randn(128, 64))
     assert int8_matmul(ok, qw.to(card), sw.to(card),
                        torch.tensor(0.01, device=card)).shape == (17, 128)
+
+
+# --- the k-NN graph of the dilated, exact and index-consuming paths ---------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_knn_graph_on_the_card_equals_the_cpu(card, dtype):
+    """``knn_graph`` orders its neighbours as ``lax.top_k`` does (larger
+    score first, the lower index first among equal scores) on the card as
+    on the CPU: on tie-heavy rows (a group of 20 equal rows, scaled copies)
+    the indices are equal, dense and tiled, at k * dilation = 9 and 3."""
+    from grafp_tpu_torch.ops.knn import knn_graph
+
+    x = _inputs(card, getattr(torch, dtype))
+    for k in (3, 9):
+        want = knn_graph(x.cpu(), k)
+        assert torch.equal(knn_graph(x, k).cpu(), want)
+        assert torch.equal(knn_graph(x, k, block_rows=64).cpu(), want)

@@ -20,6 +20,7 @@ from grafp_tpu_torch.convert import state_dict_from_jax  # noqa: E402
 from grafp_tpu_torch.core import Config  # noqa: E402
 from grafp_tpu_torch.fp import FingerprintPipeline  # noqa: E402
 from grafp_tpu_torch.models import Grapher, build_model  # noqa: E402
+from grafp_tpu_torch.models.layers import drop_path_generator  # noqa: E402
 from tests.torch_port_util import (  # noqa: E402
     load_jax_weights,
     randomize_jax_variables,
@@ -102,9 +103,14 @@ def test_weight_bridge_rejects_bad_trees(fault):
         state_dict_from_jax(params, stats, port)
 
 
-@pytest.mark.parametrize("kwargs", [dict(conv="edge"), dict(dilation=2)])
-def test_grapher_outside_the_slice_raises(kwargs):
-    with pytest.raises(NotImplementedError, match="later"):
+@pytest.mark.parametrize("kwargs, err", [(dict(conv="gat"), NotImplementedError),
+                                         (dict(knn_strategy="topk"), ValueError)])
+def test_grapher_refuses_what_the_jax_package_refuses(kwargs, err):
+    """Every conv and strategy of the JAX Grapher builds since slice 10
+    (tests/test_torch_port_graph_convs.py); an unknown conv raises
+    NotImplementedError as ``grafp_tpu/models/gnn.py:295-297`` does, an
+    unknown strategy ValueError."""
+    with pytest.raises(err):
         Grapher(8, **kwargs)
 
 
@@ -116,14 +122,33 @@ def test_grapher_outside_the_slice_raises(kwargs):
                                       # package (grafp, ast, nafp) since slice 8
                                       dict(arch="resnet"),
                                       dict(compute_dtype="float16"),
-                                      dict(knn_strategy="onehot"),
-                                      dict(knn_strategy="exact"),
-                                      dict(knn_strategy="approx"),
+                                      # every strategy of the JAX package
+                                      # builds since slice 10
+                                      dict(knn_strategy="topk"),
                                       dict(arch="ast", serve_quant="int8"),
                                       dict(arch="nafp", serve_quant="int8_static")])
 def test_build_model_rejects_unported_configs(override):
     with pytest.raises((NotImplementedError, ValueError)):
         build_model(Config(**override), device="cpu")
+
+
+@pytest.mark.parametrize("strategy", ["onehot", "exact", "approx"])
+def test_build_model_builds_the_pair_layout(strategy):
+    """knn_strategy 'onehot', 'exact' and 'approx' build the JAX package's
+    pair-layout Grapher (``grafp_tpu/models/gnn.py:264-287``): no block
+    takes the kernel path or fuses, every MRConv's grouped conv is
+    block-diagonal, and the forward gives finite unit-norm fingerprints
+    (held to JAX in tests/test_torch_port_graph_convs.py)."""
+    model = build_model(Config(n_mels=16, n_frames=16, knn_strategy=strategy),
+                        device="cpu")
+    graphers = [m for m in model.modules() if isinstance(m, Grapher)]
+    assert len(graphers) == 12
+    assert not any(g.kernel or g.fuse_serving != "off" for g in graphers)
+    assert not any(g.gconv.conv.concat_interleaved for g in graphers)
+    with torch.no_grad():
+        _, z = model(torch.randn(2, 16, 16, generator=torch.Generator().manual_seed(0)))
+    assert bool(torch.isfinite(z).all())
+    assert torch.allclose(z.norm(dim=-1), torch.ones(2), atol=1e-5)
 
 
 def test_entry_points_default_to_cuda():
@@ -136,8 +161,9 @@ def test_entry_points_default_to_cuda():
 def test_batchnorm_train_mode_uses_batch_statistics():
     """A train-mode forward normalises with the batch's statistics: it
     differs from the eval-mode one, moves every running statistic, and
-    leaves the eval forward's running statistics alone; DropPath ('ramp')
-    is still refused."""
+    leaves the eval forward's running statistics alone. With the 'ramp'
+    DropPath (slice 10) the train-mode forward draws from the train step's
+    generator and refuses to run without one."""
     cfg = Config(n_mels=16, n_frames=16)
     port = build_model(cfg, device="cpu")
     spec = torch.randn(2, 16, 16, generator=torch.Generator().manual_seed(0))
@@ -150,6 +176,11 @@ def test_batchnorm_train_mode_uses_batch_statistics():
     assert not torch.allclose(z_eval, z_train)
     after = port.state_dict()
     assert all(not torch.equal(v, after[k]) for k, v in before.items())
-    with pytest.raises(NotImplementedError, match="later"):
-        build_model(Config(n_mels=16, n_frames=16, drop_path_schedule="ramp"),
-                    device="cpu")
+    ramp = build_model(Config(n_mels=16, n_frames=16, drop_path_schedule="ramp"),
+                       device="cpu", train=True)
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="generator"):
+            ramp(spec)
+        with drop_path_generator(ramp, torch.Generator().manual_seed(1)):
+            _, z_ramp = ramp(spec)
+    assert bool(torch.isfinite(z_ramp).all())
