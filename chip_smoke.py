@@ -134,12 +134,29 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      'ramp' model on phase 9's corpus for one epoch, resumed to epoch 2
      against two uninterrupted epochs (bit for bit, 4 + 4 launches a
      step).
+ 13. several devices on the one card: (a) phase 8's 2^20-row catalogue
+     split into 4 row shards on the card (a 'db' DeviceMesh of 4 cells on
+     cuda:0), exact_topk_sharded ('l2') and masked_scan_search_sharded
+     ('ivfpq' on phase 8's centroids and decoded cache) on 2048 query rows,
+     the exact local selection's ids held to the single-card search's
+     outside the near-tie band, the approximate one (0.99) by recall@20,
+     queries/s of each beside the single card's; (b) fault C7:
+     db_mesh_from_config(Config(mesh_db=8)) prints the JAX package's notice
+     and returns None, and eval_faiss with it on phase 9's fingerprint dir
+     gives phase 9's hit rates exactly; (c) the data-parallel train step on
+     the NCCL backend at world size 1 (a TCP store on localhost): one f32
+     step at B = 8 against the step without a process group (loss rel
+     1e-5, grad norm rel 1e-3), then 3 bf16 steps at bsz_train = 256 on
+     phase 5's batch and banks, 12 + 12 launches each, losses within 1 %
+     of phase 5's, ms a step and peak memory beside phase 5's; (d)
+     utils/profiling's scan_time_per_iter and IterTimer on the fused block
+     at B = 128 against phase 7's CUDA-event time (within 10 %).
 
 The line before the last is the card (nvidia-smi), the one before it the
 kernels' JSON (launches by path: the DB build's under "db_build", the
 entry points' under "cli", phase 10's under "baselines", phase 11's under
 "serve_int8" and "serve_int8_static", phase 12's under "ramp_*", "serve_*"
-and "train_*"); the last line is
+and "train_*", phase 13's under "train_ddp"); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -879,6 +896,7 @@ def eval_phase(cfg, state_dict, zero_counts, counts, card: str, work: str):
             check(differ == 0, f"rescoring sl={sl}: card and host differ")
         del recon_dev
     catalogue = {"dummy": full_dummy, "db": np.asarray(db), "query": np.asarray(query),
+                 "ivfpq": pq,
                  "qrows": qrows, "exact": indexes["l2"][1]}
     return db_build, n_dummy / t_build, catalogue
 
@@ -1083,6 +1101,7 @@ def cli_phase(state_dict, zero_counts, counts, card: str, work: str,
             "--config", "smoke.yaml", "--test_config", "test_config.yaml",
             "--test_dir", dirs["val"], "--n_query_db", str(n_query), "--small_test"], log))
         (fp_dir, hit_rates), = res.values()
+        fp9 = (os.path.abspath(fp_dir), hit_rates)
         saved = [os.path.join(r, "hit_rates.npy") for r, _, fs_ in os.walk(fp_dir)
                  if "hit_rates.npy" in fs_]
         direct = eval_faiss(fp_dir, test_ids="2000", index_type="l2", verbose=False)
@@ -1155,7 +1174,7 @@ def cli_phase(state_dict, zero_counts, counts, card: str, work: str,
         hold_rows("cli generate f32 vs bf16", fps["f32"], fps["bf16"])
     finally:
         os.chdir(cwd)
-    return launches
+    return launches, fp9
 
 
 # --- phase 10: the baseline encoders -------------------------------------
@@ -1870,6 +1889,204 @@ def graph_options_phase(state_dict, waves, z16, banks, x_i, x_j, ref_ms: dict,
     return by_path
 
 
+# --- phase 13: several devices ---------------------------------------------
+SHARDS = 4                     # 'db' shards of the catalogue, all on the one card
+MESH_QUERIES = 2048            # query rows of the sharded search (two QUERY_CHUNKs)
+DDP_STEPS = 3
+DDP_LOSS_RTOL = 0.01           # bf16 steps at world size 1 vs phase 5's steps
+TIMER_RTOL = 0.10              # utils/profiling against phase 7's CUDA events
+
+
+def multi_device_phase(cat: dict, fp9, banks, x_i, x_j, ref: dict, zero_counts,
+                       counts, card: str) -> dict:
+    """Phase 13: (a) the sharded search on phase 8's catalogue, split into
+    SHARDS row shards on the one card, 'l2' and 'ivfpq' (phase 8's
+    centroids, codebooks and cache), exact and approximate local selection,
+    against the single-card search; (b) fault C7: db_mesh_from_config with
+    mesh_db 8 on one card and eval_faiss with its mesh on phase 9's
+    fingerprint dir ``fp9`` = (dir, hit rates); (c) the data-parallel train
+    step on NCCL at world size 1 (f32 B = 8 against the step without a
+    process group; DDP_STEPS bf16 steps at bsz_train on phase 5's batch and
+    banks against phase 5's losses ``ref["losses"]``); (d) utils/profiling
+    on the fused block against phase 7's time ``ref["block"]``. Returns
+    the launches of (c)."""
+    import io
+    import socket
+
+    import torch.distributed as dist
+
+    from grafp_tpu_torch.core import Config
+    from grafp_tpu_torch.core.mesh import db_mesh_from_config, make_mesh, shard_rows
+    from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.ops.grapher_block import grapher_block
+    from grafp_tpu_torch.retrieval.evaluate import eval_faiss
+    from grafp_tpu_torch.retrieval.search import (
+        DB_BLOCK_ROWS,
+        exact_topk,
+        exact_topk_sharded,
+        masked_scan_search,
+        masked_scan_search_sharded,
+    )
+    from grafp_tpu_torch.train import create_train_state, make_train_step
+    from grafp_tpu_torch.utils.profiling import IterTimer, scan_time_per_iter
+
+    # a. the sharded search, SHARDS row shards on the one card
+    t0 = time.perf_counter()
+    mesh = make_mesh(n_data=1, n_db=SHARDS, devices=["cuda"] * SHARDS)
+    full = np.concatenate([cat["dummy"], cat["db"]])
+    n = len(full)
+    q = torch.as_tensor(cat["qrows"][:MESH_QUERIES], device="cuda")
+    chunks = [q[i:i + 1024] for i in range(0, len(q), 1024)]
+    rows = torch.as_tensor(full, device="cuda")
+    shards = shard_rows(rows, mesh)
+    check(len(shards) == SHARDS and all(s.device.type == "cuda" for s in shards),
+          "the shards are not on the card")
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = [fn(c) for c in chunks]
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        return (torch.cat([o[0] for o in out]).cpu().numpy(),
+                torch.cat([o[1] for o in out]).cpu().numpy(), len(q) / t)
+
+    pq = cat["ivfpq"]
+    decoded, _, cells = pq._payload()
+    check(decoded.dtype == torch.bfloat16, "phase 8's ivfpq index holds no decoded cache")
+    block = -(-n // SHARDS)
+    row_shards = shard_rows(decoded, mesh, multiple=block)
+    cell_shards = shard_rows(cells, mesh, multiple=block, fill=-1)
+    searches = {
+        "l2": (lambda c: exact_topk(c, rows, SEARCH_K),
+               lambda c, sel: exact_topk_sharded(c, shards, SEARCH_K, m_valid=n,
+                                                 scan_topk=sel, recall_target=0.99)),
+        "ivfpq": (lambda c: masked_scan_search(
+                      c, decoded, None, cells, pq._coarse_membership(c), n, SEARCH_K,
+                      min(DB_BLOCK_ROWS, n)),
+                  lambda c, sel: masked_scan_search_sharded(
+                      c, row_shards, None, cell_shards, pq._coarse_membership(c), n,
+                      SEARCH_K, block, sel, 0.99)),
+    }
+    for kind, (single, sharded) in searches.items():
+        run(single)                                                   # warm-up
+        run(lambda c: sharded(c, "exact"))
+        want_d, want_i, qps_one = run(single)
+        got_d, got_i, qps_exact = run(lambda c: sharded(c, "exact"))
+        _, approx_i, qps_approx = run(lambda c: sharded(c, "approx"))
+        agree, share = ids_agree(got_i, want_i, want_d)
+        recall = recall_at(approx_i, want_i, SEARCH_K)
+        print(f"sharded {kind}, {SHARDS} shards of {block} rows on one card, "
+              f"{len(q)} queries k={SEARCH_K}: exact selection ids vs one card equal "
+              f"outside the band {DIST_BAND:g}: {agree} (ranks compared {share:.3f}, max "
+              f"|d| {np.abs(got_d - want_d).max():.3g}); approx local selection at 0.99 "
+              f"recall@{SEARCH_K} {recall:.4f}; queries/s one card {qps_one:.1f}, "
+              f"sharded exact {qps_exact:.1f}, sharded approx {qps_approx:.1f} [{card}]",
+              flush=True)
+        check(agree and share > 0.5, f"sharded {kind} ids differ from one card's")
+        check(recall >= 0.99 - APPROX_SLACK, f"sharded {kind} approx recall {recall}")
+    del rows, shards, row_shards, cell_shards, q, chunks
+    torch.cuda.empty_cache()
+    print(f"phase 13a took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # b. C7: mesh_db 8 on one card
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        none = db_mesh_from_config(Config(mesh_db=8))
+    notice = (f"[mesh] mesh_db=8 requested but only {torch.cuda.device_count()} "
+              "device(s) visible; falling back to single-chip retrieval\n")
+    print(f"C7: db_mesh_from_config(mesh_db=8) -> {none}; printed {out.getvalue()!r}")
+    check(none is None and out.getvalue() == notice, "mesh_db=8: no notice or a mesh")
+    fp_dir, hit9 = fp9
+    hit = eval_faiss(fp_dir, test_ids="2000", index_type="l2", verbose=False, mesh=none)
+    print("C7: eval_faiss with that mesh on phase 9's fingerprint dir: "
+          + json.dumps(np.round(hit, 4).tolist()), flush=True)
+    check(np.array_equal(hit, hit9), "C7: hit rates differ from phase 9's")
+
+    # c. the data-parallel step on NCCL at world size 1
+    t0 = time.perf_counter()
+    cfg32, cfg16 = Config(), Config(compute_dtype="bfloat16")
+    gw = torch.Generator(device="cuda").manual_seed(30)
+    xs_i = torch.randn(PARITY_B, cfg32.clip_frames, device="cuda", generator=gw)
+    xs_j = xs_i + 0.3 * torch.randn(PARITY_B, cfg32.clip_frames, device="cuda", generator=gw)
+    plain = build_model(cfg32, generator=torch.Generator().manual_seed(31), train=True)
+    ddp = copy.deepcopy(plain)
+    m_plain = make_train_step(plain, cfg32)(create_train_state(plain, cfg32), xs_i, xs_j,
+                                            torch.Generator(device="cuda").manual_seed(32))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", store=dist.TCPStore("localhost", port, 1, True),
+                            rank=0, world_size=1)
+    check(dist.get_backend() == "nccl", "the process group is not NCCL")
+    m_ddp = make_train_step(ddp, cfg32)(create_train_state(ddp, cfg32), xs_i, xs_j,
+                                        torch.Generator(device="cuda").manual_seed(32))
+    lp, ld = m_plain["loss"].item(), m_ddp["loss"].item()
+    gp, gd = m_plain["grad_norm"].item(), m_ddp["grad_norm"].item()
+    print(f"train step f32 B={PARITY_B}, NCCL world size 1 vs no process group: loss "
+          f"{ld:.7f} vs {lp:.7f} (rel {abs(ld - lp) / abs(lp):.2e}), grad norm {gd:.5f} vs "
+          f"{gp:.5f} (rel {abs(gd - gp) / gp:.2e})", flush=True)
+    check(abs(ld - lp) <= LOSS_RTOL * abs(lp), "the NCCL step's loss differs")
+    check(abs(gd - gp) <= GNORM_RTOL * gp, "the NCCL step's grad norm differs")
+    del plain, ddp
+    tmodel = build_model(cfg16, generator=torch.Generator().manual_seed(5), train=True)
+    state = create_train_state(tmodel, cfg16, steps_per_epoch=100)
+    step = make_train_step(tmodel, cfg16, banks)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n_graphers = sum(BLOCKS)
+    launches = {"mrconv_concat": 0, "mrconv_concat_backward": 0}
+    losses, secs = [], []
+    for i in range(DDP_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t = time.perf_counter()
+        m = step(state, x_i, x_j, gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        got = counts()
+        losses.append(m["loss"].item())
+        for name in launches:
+            launches[name] += got[name]
+        print(f"train_ddp step {i}: loss {losses[-1]:.6f} (phase 5: {ref['losses'][i]:.6f}), "
+              f"launches {got}", flush=True)
+        check(got == {**{k: 0 for k in got}, "mrconv_concat": n_graphers,
+                      "mrconv_concat_backward": n_graphers},
+              f"expected {n_graphers} forward and backward launches per step")
+        check(np.isfinite(losses[-1]) and abs(losses[-1] - ref["losses"][i])
+              <= DDP_LOSS_RTOL * abs(ref["losses"][i]), "train_ddp loss off phase 5's")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+    print(f"train_ddp bf16 bsz_train={x_i.shape[0]}, NCCL world size 1: {ms:.3f} ms a step "
+          f"(host clock, steps 2-{DDP_STEPS}; phase 7's step without a process group "
+          f"{ref['step_ms']:.3f} ms), peak memory {peak:.2f} GB (phase 5: "
+          f"{ref['peak_gb']:.2f} GB) [{card}]", flush=True)
+    dist.destroy_process_group()
+    del tmodel, state, step
+    torch.cuda.empty_cache()
+    print(f"phase 13c took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # d. utils/profiling on the fused block, against phase 7's CUDA events
+    shape = max((r for r in ref["block"] if r["dtype"] == "bfloat16"), key=lambda r: r["ms"])
+    c = shape["C"]
+    x = torch.randn(B, shape["N"], c, generator=torch.Generator(device="cuda").manual_seed(33),
+                    device="cuda").to(torch.bfloat16)
+    ws = stage_weights(c, torch.bfloat16, seed=10 + c)
+    body = lambda a: grapher_block(a, K, *ws)  # noqa: E731
+    fit = scan_time_per_iter(body, x, iters_lo=5, iters_hi=25, reps=3)
+    loop = IterTimer(body, x)
+    loop_ms = 1e3 * loop.run(20) / 20
+    fit_ms = 1e3 * fit["per_iter_s"]
+    print(f"utils/profiling, grapher_block bf16 B={B} N={shape['N']} C={c}: "
+          f"scan_time_per_iter {fit_ms:.4f} ms (fixed {1e3 * fit['fixed_overhead_s']:.4f} "
+          f"ms), IterTimer {loop_ms:.4f} ms a call, phase 7's CUDA events "
+          f"{shape['ms']:.4f} ms [{card}]", flush=True)
+    for name, got_ms in (("scan_time_per_iter", fit_ms), ("IterTimer", loop_ms)):
+        check(abs(got_ms - shape["ms"]) <= TIMER_RTOL * shape["ms"],
+              f"{name} {got_ms:.4f} ms vs phase 7's {shape['ms']:.4f} ms")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2102,6 +2319,7 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(np.isfinite(losses)), "a train loss is not finite")
     check(losses[-1] < losses[0], f"train losses do not fall: {losses}")
+    phase5_losses = list(losses)
 
     # the trained state serves: bf16 pipeline, unit-norm fingerprints
     served = build_model(cfg16)
@@ -2306,7 +2524,7 @@ def main() -> int:
         print(f"phase 9 at {time.perf_counter() - t_all:.1f} s", flush=True)
         t9 = time.perf_counter()
         with tempfile.TemporaryDirectory() as work:
-            cli = cli_phase(serve_state, zero_counts, counts, card, work, t_step,
+            cli, fp9 = cli_phase(serve_state, zero_counts, counts, card, work, t_step,
                             build_fps)
             for name in wrappers:
                 launches[name]["cli"] = cli.get(name, 0)
@@ -2331,7 +2549,6 @@ def main() -> int:
                 launches["grapher_block"][path] = 0               # checked none
             torch.cuda.empty_cache()
             index_rest_phase(catalogue, eval_work, card)
-            del catalogue
             torch.cuda.empty_cache()
             print(f"phase 11 took {time.perf_counter() - t11:.1f} s")
 
@@ -2346,6 +2563,21 @@ def main() -> int:
                 for name in wrappers:
                     launches[name][path] = got[name]
             print(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
+            # 13. several devices: the sharded search on phase 8's
+            # catalogue, C7 on phase 9's fingerprint dir, the data-parallel
+            # step on NCCL at world size 1, the profiling timers
+            print(f"phase 13 at {time.perf_counter() - t_all:.1f} s", flush=True)
+            t13 = time.perf_counter()
+            ddp = multi_device_phase(
+                catalogue, fp9, banks, x_i, x_j,
+                {"losses": phase5_losses, "step_ms": t_step, "peak_gb": peak_gb,
+                 "block": per_shape["grapher_block"]}, zero_counts, counts, card)
+            for name, n in ddp.items():
+                launches[name]["train_ddp"] = n
+            del catalogue
+            torch.cuda.empty_cache()
+            print(f"phase 13 took {time.perf_counter() - t13:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     sources = {"mrconv_concat": ("mrconv_concat.cu", "grafp_tpu/ops/pallas_knn.py:376"),

@@ -111,6 +111,7 @@ def main(argv=None, device=None):
 
     from grafp_tpu_torch.core.config import load_config
     from grafp_tpu_torch.core.device import resolve_device
+    from grafp_tpu_torch.core.mesh import db_mesh_from_config
     from grafp_tpu_torch.data.dataset import (
         FingerprintDataset,
         TrackLoader,
@@ -133,9 +134,6 @@ def main(argv=None, device=None):
     args = build_argparser().parse_args(argv)
     dev = resolve_device(device)
     cfg = load_config(args.config)
-    if int(cfg["mesh_db"] or 0) > 1:
-        raise NotImplementedError(
-            "mesh_db > 1: the DB-sharded search over several cards is ROADMAP A7")
     data_dir = cfg["data_dir"]
     if args.test_snr is not None:
         cfg["val_snr"] = [int(args.test_snr), int(args.test_snr)]
@@ -225,10 +223,13 @@ def main(argv=None, device=None):
             create_fp_db(query_loader, pipeline, banks, fp_dir,
                          seed=args.seed, ir_prob=ir_prob, verbose=False)
 
+            # mesh_db > 1 shards the index over that many cards, or falls
+            # back to one card with a notice when fewer are visible
             hit_rates = eval_faiss(emb_dir=fp_dir, test_ids=args.test_ids,
                                    test_seq_len=" ".join(map(str, test_seq_len)),
                                    index_type=index_type, scan_topk=cfg["scan_topk"],
-                                   scan_recall=cfg["scan_recall"], device=dev)
+                                   scan_recall=cfg["scan_recall"], device=dev,
+                                   mesh=db_mesh_from_config(cfg))
             text = f"{args.text}_{epoch}"
             label = epoch if isinstance(epoch, int) else 0
             writer.add_text("table", create_table(hit_rates, cfg["overlap"], cfg["dur"],

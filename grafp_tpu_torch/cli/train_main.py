@@ -15,6 +15,19 @@ validation (an exact 'l2' index over the dummy DB) at epoch 1 and every
 <epoch>}.pth with the loss and hit-rate logs, under ``checkpoint/`` of the
 working directory. Each step runs on the card (``main``'s ``device``, None
 = the card); the loader's threads only decode and crop.
+
+On N cards, data parallel:
+
+    torchrun --nproc_per_node N -m grafp_tpu_torch.cli.train --config ... --ckp ...
+
+Each rank joins the process group (``parallel.initialize_distributed``,
+NCCL on the cards), takes card LOCAL_RANK, and reads and decodes only its
+B / N rows of each global batch (``bsz_train`` stays the global batch);
+the step computes the global batch's loss and gradients
+(``train/step.py``), so the run follows the one-process run up to
+reduction order. Rank 0 alone validates, saves the checkpoints and writes
+TensorBoard; the other ranks wait for it at a barrier. ``--resume`` loads
+on every rank. Without torchrun nothing changes.
 """
 
 from __future__ import annotations
@@ -103,6 +116,7 @@ def main(argv=None, device=None):
     )
     from grafp_tpu_torch.data.indexing import load_augmentation_index
     from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.parallel import distributed
     from grafp_tpu_torch.train import create_train_state, make_train_step
     from grafp_tpu_torch.train.checkpoint import (
         load_ckp,
@@ -117,13 +131,16 @@ def main(argv=None, device=None):
     )
 
     args = build_argparser().parse_args(argv)
+    joined = distributed.initialize_distributed(device=device)
+    rank, ranks = distributed.rank(), distributed.world_size()
+    lead = rank == 0                      # validates, saves and logs
     dev = resolve_device(device)
     cfg = load_config(args.config)
     if args.encoder == "resnet":
         raise NotImplementedError  # deprecated in the reference too
     cfg["arch"] = args.encoder
     cfg["k"] = args.k
-    writer = TensorBoardWriter(f"runs/{args.ckp}")
+    writer = TensorBoardWriter(f"runs/{args.ckp}") if lead else None
     train_dir = override(cfg["train_dir"], args.train_dir)
     valid_dir = override(cfg["val_dir"], args.val_dir)
     model_folder = "checkpoint"
@@ -141,7 +158,8 @@ def main(argv=None, device=None):
     train_ds = FingerprintDataset(cfg, train_dir, train=True, seed=args.seed,
                                   cache_decoded=args.cache_decoded,
                                   cache_dir=args.cache_dir)
-    train_loader = PairBatcher(train_ds, cfg["bsz_train"], seed=args.seed)
+    train_loader = PairBatcher(train_ds, cfg["bsz_train"], seed=args.seed,
+                               shard=(rank, ranks))
 
     valid_ds = FingerprintDataset(cfg, valid_dir, train=False)
     n_dummy = override(cfg["n_dummy"], args.n_dummy_db)
@@ -193,8 +211,14 @@ def main(argv=None, device=None):
         loss_epoch = float(torch.stack(step_losses).sum()) if step_losses else 0.0
         seconds = time.time() - t0
         print(f"epoch time: {seconds:.1f}s")
-        writer.add_scalar("Loss/train", loss_epoch, epoch)
         loss_log.append(loss_epoch)
+        history["epoch_seconds"].append(seconds)
+        history["loss"].append(loss_epoch)
+        if not lead:
+            history["hit_rates"].append(None)
+            distributed.barrier()           # rank 0 validates and saves
+            continue
+        writer.add_scalar("Loss/train", loss_epoch, epoch)
 
         output_root_dir = create_fp_dir(ckp=args.ckp, epoch=epoch)
         served.load_state_dict(model.state_dict())
@@ -217,9 +241,11 @@ def main(argv=None, device=None):
         if hit_rates is not None and float(hit_rates[0][0]) > best_hr:
             best_hr = float(hit_rates[0][0])
             save_ckp(payload, args.ckp, model_folder, epoch)
-        history["epoch_seconds"].append(seconds)
-        history["loss"].append(loss_epoch)
         history["hit_rates"].append(hit_rates)
+        distributed.barrier()
 
-    writer.close()
+    if lead:
+        writer.close()
+    if joined:
+        torch.distributed.destroy_process_group()
     return history

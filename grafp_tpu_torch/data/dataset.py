@@ -31,6 +31,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
+from grafp_tpu_torch.core.mesh import local_batch_size
 from grafp_tpu_torch.data.audio_io import AudioDecodeError, load_audio
 from grafp_tpu_torch.data.indexing import load_index
 from grafp_tpu_torch.data.resample import resample_sinc
@@ -206,19 +207,29 @@ class PairBatcher:
     threaded prefetch (the reference's DataLoader(shuffle=True, workers=8,
     drop_last=True), train.py:125-127). The batch order of an epoch is a
     permutation seeded by ``seed + epoch``; ``epoch`` counts the
-    iterations begun, so a resumed run sets it to the epochs done."""
+    iterations begun, so a resumed run sets it to the epochs done.
+
+    ``shard`` = (rank, ranks) makes each batch this data-parallel rank's
+    rows of the global ``batch_size`` batch, rows [rank b, (rank + 1) b)
+    with b = batch_size / ranks: the same tracks and crops as one process
+    reads there (a crop depends on the track and the epoch only), and only
+    they are decoded."""
 
     def __init__(self, dataset: FingerprintDataset, batch_size: int,
-                 seed: int = 0, num_threads: int = 4, prefetch: int = 2):
+                 seed: int = 0, num_threads: int = 4, prefetch: int = 2,
+                 shard: Tuple[int, int] = (0, 1)):
+        rank, ranks = shard
         self.ds = dataset
-        self.bsz = batch_size
+        self.global_bsz = batch_size
+        self.bsz = local_batch_size(batch_size, ranks)
+        self.rank = rank
         self.seed = seed
         self.num_threads = num_threads
         self.prefetch = prefetch
         self.epoch = 0
 
     def __len__(self) -> int:
-        return len(self.ds) // self.bsz
+        return len(self.ds) // self.global_bsz
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         order = np.random.RandomState(self.seed + self.epoch).permutation(
@@ -232,7 +243,8 @@ class PairBatcher:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         idx_q: "queue.Queue" = queue.Queue()
         for b in range(n_batches):
-            idx_q.put((b, order[b * self.bsz:(b + 1) * self.bsz]))
+            rows = order[b * self.global_bsz:(b + 1) * self.global_bsz]
+            idx_q.put((b, rows[self.rank * self.bsz:(self.rank + 1) * self.bsz]))
         results: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         lock = threading.Lock()
         next_emit = [0]

@@ -210,6 +210,13 @@ class AugmentDraws:
     snr: Optional[torch.Tensor] = None
     noise_take: Optional[torch.Tensor] = None
 
+    def rows(self, sl: slice) -> "AugmentDraws":
+        """The draws of the batch rows ``sl`` (a data-parallel rank's rows
+        of draws made for the global batch)."""
+        return AugmentDraws(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name)[sl] for f in fields(self)})
+
 
 def sample_augment_draws(banks: AugmentBanks, batch: int,
                          generator: torch.Generator,

@@ -79,6 +79,9 @@ class FingerprintPipeline:
                                    and all(float(a) == 0.0 for a in amax))
         # the unfolded model, kept only until it is calibrated
         self._source = model if self._needs_calibration else None
+        # dynamic int8: one activation scale per tensor, so a row depends
+        # on the rest of its embed batch
+        self._batch_coupled = quant == "int8"
         self.cfg = cfg
         self.batch_size = batch_size
         self.fs = int(cfg["fs"])
@@ -167,15 +170,32 @@ class FingerprintPipeline:
         return unfold_segments(spec, self.n_frames, self.step).numpy()
 
     @torch.inference_mode()
-    def _embed_padded(self, padded: np.ndarray, s_true: Sequence[int]) -> List[np.ndarray]:
+    def _embed_padded(self, padded: np.ndarray, s_true: Sequence[int],
+                      kpack: int = 1) -> List[np.ndarray]:
         """(K, L) padded tracks of one bucket -> K (S_k, d) fingerprint
         arrays: one log-mel call, the true segments of all K embedded in
-        full batches, one copy back."""
+        full batches, one copy back.
+
+        Under dynamic int8 the batches are the JAX package's
+        (``grafp_tpu/fp/builder.py:113-150``), since a row depends on its
+        batch there: every segment of the bucket (the tail's too), a group
+        of fewer than ``kpack`` > 1 tracks repeat-padded with its last
+        track, and the last batch zero-padded to ``batch_size``."""
         mel = log_mel_spectrogram(self._tensor(padded), self.mcfg_nopad)
-        segs = torch.cat([unfold_segments(m, self.n_frames, self.step)[:s]
-                          for m, s in zip(mel, s_true)])
-        z = self._embed_batches(segs).cpu().numpy()
-        return np.split(z, np.cumsum(s_true)[:-1])
+        if not self._batch_coupled:
+            segs = torch.cat([unfold_segments(m, self.n_frames, self.step)[:s]
+                              for m, s in zip(mel, s_true)])
+            z = self._embed_batches(segs).cpu().numpy()
+            return np.split(z, np.cumsum(s_true)[:-1])
+        k = mel.shape[0]
+        if kpack > 1 and k < kpack:
+            mel = torch.cat([mel, mel[-1:].expand(kpack - k, -1, -1)])
+        segs = torch.cat([unfold_segments(m, self.n_frames, self.step) for m in mel])
+        s_b = segs.shape[0] // mel.shape[0]
+        pad = (-segs.shape[0]) % self.batch_size
+        segs = torch.nn.functional.pad(segs, (0, 0, 0, 0, 0, pad))
+        z = self._embed_batches(segs)[:k * s_b].reshape(k, s_b, -1).cpu().numpy()
+        return [z[t, :s] for t, s in enumerate(s_true)]
 
     def fingerprint_track(self, wave: np.ndarray) -> np.ndarray:
         """(T,) raw audio -> (S, d) fingerprints, wave to fingerprints on
@@ -185,9 +205,13 @@ class FingerprintPipeline:
     def fingerprint_tracks(self, waves, pack: Optional[int] = None) -> List[np.ndarray]:
         """Raw tracks (T_i,) -> (S_i, d) fingerprints each. Runs of up to
         ``pack`` (default ``build_pack``) consecutive tracks of one bucket
-        length share one ``_embed_padded`` call; rows are independent of
-        the packing (eval-mode model), so each equals its
-        ``fingerprint_track``."""
+        length share one ``_embed_padded`` call. Without quantisation the
+        rows are independent of the packing (eval-mode model), so each
+        equals its ``fingerprint_track``. Under ``serve_quant='int8'``
+        (dynamic) they are not: one activation scale per tensor makes a
+        row depend on the other tracks of its embed batch, as in the JAX
+        package (``grafp_tpu/fp/builder.py:314``), so a packed build's rows
+        equal the JAX package's at the same packing."""
         padded = [self._pad_track(np.asarray(w, np.float32)) for w in waves]
         if self._needs_calibration:
             first = next((w for w, (_, s) in zip(waves, padded) if s > 0), None)
@@ -209,7 +233,7 @@ class FingerprintPipeline:
                 group.append(j)
                 j += 1
             zs = self._embed_padded(np.concatenate([padded[g][0] for g in group]),
-                                    [padded[g][1] for g in group])
+                                    [padded[g][1] for g in group], kpack)
             for g, z in zip(group, zs):
                 out[g] = z
             i = j

@@ -31,6 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from grafp_tpu_torch.parallel import distributed
+
 BN_MOMENTUM = 0.9      # flax convention: ra = 0.9 * ra + 0.1 * batch
 BN_EPS = 1e-5
 
@@ -389,7 +391,15 @@ class BatchNorm(nn.Module):
     statistics take ``0.9 * running + 0.1 * batch`` with the BIASED batch
     variance (torch's F.batch_norm would store the unbiased one), unless
     ``update_stats`` is off (``frozen_statistics``). Eval: the running
-    statistics."""
+    statistics.
+
+    Under a process group (data-parallel training) the statistics are
+    those of the global batch, as GSPMD computes them for the JAX
+    package's global-batch step: the f32 sums of x and x^2 are summed over
+    the ranks (differentiably) and divided by the global count, so the
+    running statistics stay equal on every rank. ``Config.bn_cross_replica``
+    changes nothing: the JAX CLI builds its model without an axis name,
+    so its statistics are global either way."""
 
     def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -404,8 +414,14 @@ class BatchNorm(nn.Module):
         x32 = x.to(torch.float32)
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x32.mean(axes)
-            var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
+            if distributed.group_active():
+                count = x32.numel() // x32.shape[-1] * distributed.world_size()
+                sums = distributed.all_reduce_sum(
+                    torch.stack([x32.sum(axes), (x32 * x32).sum(axes)]))
+                mean, mean_sq = sums[0] / count, sums[1] / count
+            else:
+                mean, mean_sq = x32.mean(axes), (x32 * x32).mean(axes)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     self.running_mean.copy_(BN_MOMENTUM * self.running_mean
@@ -450,12 +466,16 @@ class DropPath(nn.Module):
     mask is drawn from ``generator``, the train step's own, which
     ``drop_path_generator`` sets for one forward (the JAX step hands its key
     to the model as ``rngs={"droppath": key}``), never from the global
-    generator: a train-mode draw without one raises."""
+    generator: a train-mode draw without one raises. Under data-parallel
+    training ``global_rows`` = (n, rows) makes each draw one for the n rows
+    of the global batch, of which this rank keeps ``rows``, so that every
+    rank's masks are those that one process would draw."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
+        self.global_rows: Optional[Tuple[int, torch.Tensor]] = None
 
     def mask(self, x: torch.Tensor) -> Optional[torch.Tensor]:
         """The (B, 1, ..., 1) bool keep mask for x, one uniform draw per
@@ -465,8 +485,10 @@ class DropPath(nn.Module):
         if self.generator is None:
             raise RuntimeError("DropPath in train mode draws from the train step's "
                                "generator: run the forward inside drop_path_generator")
-        u = torch.rand((x.shape[0],), generator=self.generator,
-                       device=self.generator.device)
+        n = x.shape[0] if self.global_rows is None else self.global_rows[0]
+        u = torch.rand((n,), generator=self.generator, device=self.generator.device)
+        if self.global_rows is not None:
+            u = u[self.global_rows[1]]
         return (u < 1.0 - self.rate).to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -482,17 +504,20 @@ class DropPath(nn.Module):
 
 
 @contextlib.contextmanager
-def drop_path_generator(model: nn.Module, generator: torch.Generator) -> Iterator[None]:
+def drop_path_generator(model: nn.Module, generator: torch.Generator,
+                        global_rows: Optional[Tuple[int, torch.Tensor]] = None
+                        ) -> Iterator[None]:
     """Inside: every DropPath of ``model`` draws its masks from
-    ``generator`` (the train step's forward runs in it)."""
+    ``generator`` (the train step's forward runs in it), for the global
+    batch's rows when ``global_rows`` = (n, this rank's rows) is given."""
     paths = [m for m in model.modules() if isinstance(m, DropPath)]
     for m in paths:
-        m.generator = generator
+        m.generator, m.global_rows = generator, global_rows
     try:
         yield
     finally:
         for m in paths:
-            m.generator = None
+            m.generator, m.global_rows = None, None
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:

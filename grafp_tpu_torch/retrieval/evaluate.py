@@ -232,14 +232,16 @@ def eval_faiss(emb_dir: str, emb_dummy_dir: Optional[str] = None,
                n_centroids: int = 64, verbose: bool = True,
                scan_topk: str = "exact", scan_recall: float = 0.99,
                rescore: str = "auto",
-               device: Optional[Union[str, torch.device]] = None) -> np.ndarray:
+               device: Optional[Union[str, torch.device]] = None,
+               mesh=None) -> np.ndarray:
     """The reference's eval.py:170-332 on the port's index family, on
     ``device`` (None = the CUDA card): loads the query, db and dummy_db
     memmaps, builds and trains the index (any type of ``get_index``) on
     dummy_db, adds dummy_db and db, rescores sequences (``rescore``:
     'auto' | 'device' | 'host') and returns the (4, n_sl) hit rates in
-    percent, saved beside raw_score.npy and test_ids.npy. ``scan_topk`` and
-    ``scan_recall`` go to ``get_index``."""
+    percent, saved beside raw_score.npy and test_ids.npy. ``scan_topk``,
+    ``scan_recall`` and ``mesh`` (a ``DeviceMesh`` whose 'db' axis shards
+    the index's rows; None = one device) go to ``get_index``."""
     if rescore not in ("auto", "device", "host"):
         raise ValueError(f"rescore must be 'auto', 'device' or 'host', got {rescore!r}")
     if isinstance(test_seq_len, str):
@@ -254,7 +256,7 @@ def eval_faiss(emb_dir: str, emb_dummy_dir: Optional[str] = None,
                                                 display=verbose)
     index = get_index(index_type, dummy_db, dummy_db.shape, max_train,
                       n_centroids=n_centroids, scan_topk=scan_topk,
-                      scan_recall=scan_recall, device=device)
+                      scan_recall=scan_recall, device=device, mesh=mesh)
     t0 = time.time()
     index.add(dummy_db)
     index.add(db)

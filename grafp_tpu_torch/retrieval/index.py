@@ -1,5 +1,5 @@
-"""The index family on the card (port of ``grafp_tpu.retrieval.index``,
-single device): 'l2' (flat exact), 'ivf' (IVFFlat, nlist = 400), 'ivfpq'
+"""The index family on the card (port of ``grafp_tpu.retrieval.index``):
+'l2' (flat exact), 'ivf' (IVFFlat, nlist = 400), 'ivfpq'
 (n_centroids cells, 64 x 8-bit PQ), 'ivfpq-rr' (the same with a 4 x 4-bit
 residual PQ re-rank), 'lsh' (256-bit random-hyperplane codes) and 'hnsw'
 (on the host, ``retrieval/hnsw.py``), behind the reference's factory
@@ -15,6 +15,15 @@ PQ storage is scanned through a decoded bf16 cache, or decoded per block
 when the cache does not fit. ``scan_topk='approx'`` selects each block's
 candidates approximately (``search.topk_approx``). Missing results are id
 -1 with an infinite distance (FAISS's convention).
+
+Several devices: ``get_index(..., mesh=)`` with a ``DeviceMesh`` whose 'db'
+axis holds more than one device gives 'l2' as ``IndexFlatSharded`` and
+attaches the mesh to the rest of the scan family ('ivf', 'ivfpq',
+'ivfpq-rr', 'lsh'): the rows (or PQ codes), and the cell ids, are split
+into equal shards, one a device, padded to a whole number of scan blocks
+a shard, and searched by ``search.masked_scan_search_sharded`` (
+``exact_topk_sharded`` for 'l2'). Results equal the single-device index's
+up to ties. 'hnsw' stays on the host.
 """
 
 from __future__ import annotations
@@ -26,11 +35,14 @@ import numpy as np
 import torch
 
 from grafp_tpu_torch.core.device import resolve_device
+from grafp_tpu_torch.core.mesh import DB_AXIS, shard_rows
 from grafp_tpu_torch.retrieval.kmeans import assign, kmeans
 from grafp_tpu_torch.retrieval.pq import ProductQuantizer
 from grafp_tpu_torch.retrieval.search import (
     DB_BLOCK_ROWS,
+    exact_topk_sharded,
     masked_scan_search,
+    masked_scan_search_sharded,
     topk_lower_first,
 )
 from grafp_tpu_torch.retrieval.hnsw import IndexHNSW
@@ -59,6 +71,36 @@ class _BlockScanSearcher:
         # each block's selection: 'exact' or 'approx' at scan_recall
         self.scan_topk = "exact"
         self.scan_recall = 0.99
+        # a DeviceMesh whose 'db' axis shards the payload rows, or None
+        self.mesh = None
+        self._shards = None
+
+    def _db_ndev(self) -> int:
+        return 1 if self.mesh is None else int(self.mesh.shape.get(DB_AXIS, 1))
+
+    def _row_block(self, n_rows: int) -> int:
+        """The scan block of a payload of n_rows: the rows are padded to a
+        multiple of block x ndev, so that every device's shard is a whole
+        number of scan blocks."""
+        return min(DB_BLOCK_ROWS, -(-max(n_rows, 1) // self._db_ndev()))
+
+    def _put_rows(self, x: torch.Tensor, block: int, fill=0):
+        """``x`` split by rows over the mesh's 'db' devices, each shard a
+        multiple of ``block`` rows; pad rows hold ``fill``."""
+        return shard_rows(x, self.mesh, DB_AXIS, multiple=block, fill=fill)
+
+    def _shard_payload(self, rows, codebooks, cells, block: int):
+        """(row shards, codebooks, cell shards or None) of a payload."""
+        return (self._put_rows(rows, block), codebooks,
+                None if cells is None else self._put_rows(cells, block, fill=-1))
+
+    def _sharded_payload(self):
+        """The payload's shards and scan block, cached per payload."""
+        payload = self._payload()
+        if self._shards is None or self._shards[0] is not payload:
+            block = self._row_block(payload[0].shape[0])
+            self._shards = (payload, self._shard_payload(*payload, block), block)
+        return self._shards[1:]
 
     def _payload(self):
         """(rows_or_codes (M, *), codebooks or None, cells or None) on the
@@ -82,11 +124,18 @@ class _BlockScanSearcher:
 
     def _search_chunk(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
         qd = torch.as_tensor(q, device=self.device)
-        rows, codebooks, cells = self._payload()
-        member = self._coarse_membership(qd) if cells is not None else None
-        d, i = masked_scan_search(qd, rows, codebooks, cells, member, self.ntotal,
-                                  k, min(DB_BLOCK_ROWS, max(rows.shape[0], 1)),
-                                  self.scan_topk, self.scan_recall)
+        if self._db_ndev() > 1:
+            (rows, codebooks, cells), block = self._sharded_payload()
+            member = self._coarse_membership(qd) if cells is not None else None
+            d, i = masked_scan_search_sharded(qd, rows, codebooks, cells, member,
+                                              self.ntotal, k, block, self.scan_topk,
+                                              self.scan_recall)
+        else:
+            rows, codebooks, cells = self._payload()
+            member = self._coarse_membership(qd) if cells is not None else None
+            d, i = masked_scan_search(qd, rows, codebooks, cells, member, self.ntotal,
+                                      k, min(DB_BLOCK_ROWS, max(rows.shape[0], 1)),
+                                      self.scan_topk, self.scan_recall)
         d, i = d.cpu().numpy(), i.cpu().numpy()
         return d, np.where(np.isinf(d), -1, i)
 
@@ -117,6 +166,29 @@ class IndexFlat(_BlockScanSearcher):
 
     def reconstruct_n(self, start: int, n: int) -> np.ndarray:
         return self._payload()[0][start:start + n].cpu().numpy()
+
+
+class IndexFlatSharded(IndexFlat):
+    """Exact L2 with the rows split over the 'db' devices of ``mesh``: a
+    distance product and local top-k per device, one exact merge
+    (``search.exact_topk_sharded``; ``grafp_tpu/retrieval/index.py:218-250``).
+    The rows are padded to a multiple of the device count; ``m_valid``
+    masks the padding. Same results as IndexFlat up to ties."""
+
+    def __init__(self, d: int, device: torch.device, mesh):
+        super().__init__(d, device)
+        self.mesh = mesh
+
+    def _search_chunk(self, q: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        (rows, _, _), _ = self._sharded_payload()
+        d, i = exact_topk_sharded(torch.as_tensor(q, device=self.device), rows, k,
+                                  m_valid=self.ntotal, scan_topk=self.scan_topk,
+                                  recall_target=self.scan_recall)
+        d, i = d.cpu().numpy(), i.cpu().numpy()
+        return d, np.where(np.isinf(d), -1, i)
+
+    def _row_block(self, n_rows: int) -> int:
+        return 1                  # rows padded to a multiple of the shard count
 
 
 class IndexIVFFlat(IndexFlat):
@@ -204,14 +276,31 @@ class IndexIVFPQ(IndexIVFFlat):
         transient = self.QUERY_CHUNK * DB_BLOCK_ROWS * 22
         return max(total - transient - (16 << 30), 1 << 30)
 
+    def _fits_decoded(self, n_rows: int) -> bool:
+        """Whether n_rows fit the decoded cache; sharded, the budget is
+        each device's, times the shard count."""
+        return n_rows * self.d * 2 <= self.decoded_cache_budget() * self._db_ndev()
+
     def _payload(self):
         if self._cache is None:
             codes, cells = torch.cat(self._codes), torch.cat(self._cells)
-            if codes.shape[0] * self.d * 2 <= self.decoded_cache_budget():
+            if self._db_ndev() == 1 and self._fits_decoded(codes.shape[0]):
                 self._cache = (self.pq.decode(codes).to(torch.bfloat16), None, cells)
-            else:
+            else:            # sharded: each shard decodes on its own device
                 self._cache = (codes, self.pq.codebooks, cells)
         return self._cache
+
+    def _shard_payload(self, codes, codebooks, cells, block: int):
+        shards, _, cell_shards = super()._shard_payload(codes, codebooks, cells, block)
+        if codebooks is None or not self._fits_decoded(codes.shape[0]):
+            return shards, codebooks, cell_shards    # a decoded cache, or codes
+        decoded = []
+        for c in shards:
+            cb = codebooks.to(c.device)
+            sidx = torch.arange(cb.shape[0], device=c.device)
+            decoded.append(cb[sidx[None, :], c.long()].reshape(c.shape[0], self.d)
+                           .to(torch.bfloat16))
+        return decoded, None, cell_shards
 
     def reconstruct_n(self, start: int, n: int) -> np.ndarray:
         codes = torch.cat(self._codes)[start:start + n]
@@ -321,7 +410,7 @@ class IndexLSH(_BlockScanSearcher):
 def get_index(index_type: str, train_data, train_data_shape,
               max_nitem_train: float = 2e7, n_centroids: int = 64,
               scan_topk: str = "exact", scan_recall: float = 0.99,
-              device: Optional[Union[str, torch.device]] = None):
+              device: Optional[Union[str, torch.device]] = None, mesh=None):
     """Factory with the reference's contract (eval.py:9-123): build, train
     on (subsampled) data, set nprobe = 20, return, on ``device`` (None =
     the CUDA card). The reference's ``use_gpu`` is left out: ``device``
@@ -330,7 +419,11 @@ def get_index(index_type: str, train_data, train_data_shape,
     graph walk, not a fallback. ``scan_topk`` ('exact' | 'approx') and
     ``scan_recall`` (in (0, 1]) set the block scan's selection; anything
     else raises ValueError, as does an unknown index type;
-    'ivfpq-ondisk' raises NotImplementedError, as in the JAX package."""
+    'ivfpq-ondisk' raises NotImplementedError, as in the JAX package.
+    ``mesh``: a ``DeviceMesh`` whose 'db' axis, when it holds more than
+    one device, shards the rows: 'l2' is then ``IndexFlatSharded``, the
+    rest of the scan family gets the mesh attached, and 'hnsw' ignores
+    it. The index trains, and takes its rows, on ``device``."""
     if scan_topk not in ("exact", "approx"):
         raise ValueError(f"scan_topk must be 'exact' or 'approx', got {scan_topk!r}")
     if not 0.0 < float(scan_recall) <= 1.0:
@@ -342,11 +435,14 @@ def get_index(index_type: str, train_data, train_data_shape,
     if mode not in ("l2", "ivf", "ivfpq", "ivfpq-rr", "lsh", "hnsw"):
         raise ValueError(mode)
     print(f"Creating index: {mode}")
+    sharded = mesh is not None and mesh.shape.get(DB_AXIS, 1) > 1
     if mode == "hnsw":
         index = IndexHNSW(d, m=16, ef_construction=80)
     else:
         device = resolve_device(device)
-        if mode == "l2":
+        if mode == "l2" and sharded:
+            index = IndexFlatSharded(d, device, mesh)
+        elif mode == "l2":
             index = IndexFlat(d, device)
         elif mode == "ivf":
             index = IndexIVFFlat(d, 400, device)
@@ -358,6 +454,8 @@ def get_index(index_type: str, train_data, train_data_shape,
         else:
             index = IndexLSH(d, device, nbits=256)
         index.scan_topk, index.scan_recall = scan_topk, float(scan_recall)
+        if sharded:
+            index.mesh = mesh
     start = time.time()
     n = len(train_data)
     if n > max_nitem_train:

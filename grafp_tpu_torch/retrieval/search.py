@@ -1,5 +1,5 @@
 """Exact nearest-neighbour search on the card (port of
-``grafp_tpu.retrieval.search``, single device).
+``grafp_tpu.retrieval.search``).
 
 For a query block Q and a fingerprint database DB the squared-L2
 distances are ||q||^2 - 2 q.DB^T + ||db||^2: one (Q, d) x (d, M) f32
@@ -20,11 +20,21 @@ of ``lax.approx_max_k`` on a TPU (``topk_approx``; Chern et al., "TPU-KNN",
 2022): the row is reduced to M bins, each keeping its largest value, and
 the top-k of the bin winners is taken exactly. The cross-block merge stays
 exact, as in the JAX package.
+
+Several devices: ``exact_topk_sharded`` and ``masked_scan_search_sharded``
+take the database as a list of row shards, each on its own device (the
+'db' axis of a ``DeviceMesh``, ``core/mesh.shard_rows``). Each shard is
+scored where it lies, with the single-device body, and yields its local
+top-k under global row ids; the ndev x k candidates then go to the first
+shard's device and merge in one exact top-k, earlier shards first among
+ties, as ``shard_map`` with an all-gather does in the JAX package. The
+launches on different cards overlap: nothing waits for the host between
+them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import math
 
@@ -91,12 +101,22 @@ def _sq_norms(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x * x, dim=-1)
 
 
+def _select(x: torch.Tensor, k: int, scan_topk: str, recall_target: float):
+    """The k largest of each row: exact (``topk_lower_first``) or, with
+    'approx', ``topk_approx`` at ``recall_target``."""
+    if scan_topk == "approx":
+        return topk_approx(x, k, recall_target)
+    return topk_lower_first(x, k)
+
+
 def _topk_dist(q: torch.Tensor, db: torch.Tensor, k: int,
                db_sq: Optional[torch.Tensor] = None, metric: str = "l2",
-               n_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+               n_valid: Optional[int] = None, scan_topk: str = "exact",
+               recall_target: float = 0.99) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense block scorer: (scores, ids), squared-L2 distances ascending
     for 'l2', inner products descending for 'ip'. Rows at index >=
-    ``n_valid`` are masked to the worst score before selection."""
+    ``n_valid`` are masked to the worst score before selection, which is
+    exact or, with ``scan_topk='approx'``, ``topk_approx``."""
     inner = torch.matmul(q, db.T)
     pad = None
     if n_valid is not None:
@@ -104,13 +124,13 @@ def _topk_dist(q: torch.Tensor, db: torch.Tensor, k: int,
     if metric == "ip":
         if pad is not None:
             inner.masked_fill_(pad, -float("inf"))
-        return topk_lower_first(inner, k)
+        return _select(inner, k, scan_topk, recall_target)
     if db_sq is None:
         db_sq = _sq_norms(db)
     dist = _sq_norms(q)[:, None] - 2.0 * inner + db_sq[None, :]
     if pad is not None:
         dist.masked_fill_(pad, float("inf"))
-    s, i = topk_lower_first(-dist, k)
+    s, i = _select(-dist, k, scan_topk, recall_target)
     return -s, i
 
 
@@ -148,7 +168,8 @@ def masked_scan_search(q: torch.Tensor, rows_or_codes: torch.Tensor,
                        cells: Optional[torch.Tensor],
                        member: Optional[torch.Tensor], m_valid: int, k: int,
                        block: int, scan_topk: str = "exact",
-                       recall_target: float = 0.99) -> Tuple[torch.Tensor, torch.Tensor]:
+                       recall_target: float = 0.99,
+                       id_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The scan behind the index family (``search.py:_masked_scan_local``):
     per block of ``block`` rows, (decode ->) squared-L2 distances -> pad
     mask (ids >= m_valid) -> IVF probe mask -> block top-k -> running
@@ -161,7 +182,9 @@ def masked_scan_search(q: torch.Tensor, rows_or_codes: torch.Tensor,
     bool probe membership, both None without IVF. ``scan_topk``: each
     block's selection, 'exact' (``topk_lower_first``) or 'approx'
     (``topk_approx`` at ``recall_target``); the merge across blocks is
-    exact either way."""
+    exact either way. ``id_base`` is the global id of the first row (a
+    shard's offset in ``masked_scan_search_sharded``); ``m_valid`` counts
+    global rows."""
     nq = q.shape[0]
     q2 = torch.sum(q * q, dim=1, keepdim=True)
     best_s = torch.full((nq, k), float("inf"), device=q.device)
@@ -175,17 +198,80 @@ def masked_scan_search(q: torch.Tensor, rows_or_codes: torch.Tensor,
         rows = blk.to(torch.float32)
         dist = torch.matmul(q, rows.T).mul_(-2.0).add_(q2)
         dist.add_(torch.sum(rows * rows, dim=1)[None, :])
-        ids = torch.arange(base, base + rows.shape[0], device=q.device)
+        ids = torch.arange(id_base + base, id_base + base + rows.shape[0],
+                           device=q.device)
         dist.masked_fill_((ids >= m_valid)[None, :], float("inf"))
         if member is not None:
             c = cells[base:base + block]
             ok = member[:, c.clamp(min=0)] & (c >= 0)[None, :]
             dist.masked_fill_(~ok, float("inf"))
         kk = min(k, rows.shape[0])
-        nd, sel = (topk_approx(dist.neg_(), kk, recall_target) if scan_topk == "approx"
-                   else topk_lower_first(dist.neg_(), kk))
+        nd, sel = _select(dist.neg_(), kk, scan_topk, recall_target)
         best_s, best_i = _merge(best_s, best_i, -nd, ids[sel], k, "l2")
     return best_s, best_i
+
+
+def _merge_shards(parts, k: int, metric: str, device: torch.device):
+    """One exact top-k over the shards' candidates, gathered onto
+    ``device`` in shard order (the all-gather merge of the JAX package)."""
+    sign = -1.0 if metric == "l2" else 1.0
+    cat_s = torch.cat([s.to(device) for s, _ in parts], dim=1)
+    cat_i = torch.cat([i.to(device) for _, i in parts], dim=1)
+    ms, sel = topk_lower_first(sign * cat_s, k)
+    return sign * ms, torch.gather(cat_i, 1, sel)
+
+
+def exact_topk_sharded(q: torch.Tensor, shards: Sequence[torch.Tensor], k: int,
+                       metric: str = "l2", m_valid: Optional[int] = None,
+                       scan_topk: str = "exact", recall_target: float = 0.99
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of q (Q, d) over the rows of ``shards``, equal (M_s, d) row
+    blocks of one database, each on its own device
+    (``grafp_tpu/retrieval/search.py:exact_topk_sharded``). Each shard
+    takes its local top-k (``_topk_dist``; approximate with
+    ``scan_topk='approx'``) under global ids; the merge is exact. Rows at
+    global index >= ``m_valid`` (the caller's padding) are masked before
+    the local selection. Returns (Q, k) scores and ids on the first
+    shard's device; with exact selection they equal ``exact_topk``'s up
+    to ties."""
+    sizes = [s.shape[0] for s in shards]
+    m_valid = sum(sizes) if m_valid is None else int(m_valid)
+    kk = min(k, sizes[0])
+    parts, base = [], 0
+    for rows in shards:
+        s, i = _topk_dist(q.to(rows.device), rows, kk, metric=metric,
+                          n_valid=m_valid - base, scan_topk=scan_topk,
+                          recall_target=recall_target)
+        parts.append((s, i + base))
+        base += rows.shape[0]
+    return _merge_shards(parts, k, metric, shards[0].device)
+
+
+def masked_scan_search_sharded(q: torch.Tensor, shards: Sequence[torch.Tensor],
+                               codebooks: Optional[torch.Tensor],
+                               cells: Optional[Sequence[torch.Tensor]],
+                               member: Optional[torch.Tensor], m_valid: int, k: int,
+                               block: int, scan_topk: str = "exact",
+                               recall_target: float = 0.99
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``masked_scan_search`` with the rows (or PQ codes) in ``shards``,
+    equal row blocks each on its own device, and ``cells`` (None without
+    IVF) split alike (``search.py:masked_scan_search_sharded`` of the JAX
+    package): each device scans its shard with the single-device body,
+    global row ids from the shard's offset, and the ndev x k candidates
+    merge exactly on the first shard's device. ``scan_topk='approx'``
+    applies to the blocks' local selection only. Pad rows (global id >=
+    ``m_valid``) are masked."""
+    parts, base = [], 0
+    for r, rows in enumerate(shards):
+        dev = rows.device
+        parts.append(masked_scan_search(
+            q.to(dev), rows, None if codebooks is None else codebooks.to(dev),
+            None if cells is None else cells[r],
+            None if member is None else member.to(dev), m_valid, k, block,
+            scan_topk, recall_target, id_base=base))
+        base += rows.shape[0]
+    return _merge_shards(parts, k, "l2", shards[0].device)
 
 
 def exact_topk_streaming(q: np.ndarray, db, k: int, host_block: int = 1 << 22,

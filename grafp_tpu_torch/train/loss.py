@@ -4,11 +4,32 @@ z = interleave(z_i, z_j) row-wise -> (2B, d), pairs at (2t, 2t+1), as the
 reference's stack(dim=1).view (simclr/ntxent.py:4-29). Row r's positive
 is r XOR 1; the self column is masked to -inf, which equals the
 reference's slicing-out of self.
+
+Under data-parallel training ``global_views`` gathers every rank's
+projections, so that each rank computes the loss of the global batch with
+its global negatives, as the JAX package's global-batch step does.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+from grafp_tpu_torch.parallel import distributed
+
+
+def global_views(z_i: torch.Tensor, z_j: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's (b, d) views -> the global batch's (B, d) views, in
+    JAX's order: rank 0's rows, then rank 1's, ..., so that each positive
+    pair stays the pair that the single-process step pairs. Differentiable
+    (``distributed.all_gather``); the identity without a process group."""
+    if not distributed.group_active():
+        return z_i, z_j
+    b = z_i.shape[0]
+    z = distributed.all_gather(torch.cat([z_i, z_j]))      # (world, 2b, d)
+    return z[:, :b].reshape(-1, z.shape[-1]), z[:, b:].reshape(-1, z.shape[-1])
 
 
 def ntxent_loss(z_i: torch.Tensor, z_j: torch.Tensor, tau: float) -> torch.Tensor:

@@ -10,6 +10,18 @@ forwards, simclr.py:29-45). The augment and the log-mel take no
 gradient. The step's generator feeds the augment and then the model's
 DropPath masks ('ramp' schedule), as the JAX step's key feeds both
 (``grafp_tpu/train/step.py:55-67``).
+
+Data parallel (``torchrun``, ``parallel/distributed.py``): under a process
+group of N ranks each rank passes its own b = B / N rows of x_i and x_j,
+rows [r b, (r + 1) b) of the global batch, and the step computes what the
+JAX package's global-batch program computes on B rows. The augment and the
+DropPath masks are drawn for the global batch from the step's generator,
+the same on every rank, and each rank keeps its rows (in the stacked 2B
+batch: [r b, (r + 1) b) and B + [r b, (r + 1) b)); BatchNorm statistics
+and NT-Xent negatives are global (``models/layers.BatchNorm``,
+``train/loss.global_views``); the gradients are averaged over the ranks.
+The loss and grad norm are the global batch's, bit-equal on every rank,
+and so are the parameters after the update.
 """
 
 from __future__ import annotations
@@ -19,10 +31,15 @@ from typing import Callable, Dict, Optional, Union
 import torch
 
 from grafp_tpu_torch.core.device import resolve_device
-from grafp_tpu_torch.dsp.augment import AugmentBanks, augment_waveforms
+from grafp_tpu_torch.dsp.augment import (
+    AugmentBanks,
+    augment_with_draws,
+    sample_augment_draws,
+)
 from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram
 from grafp_tpu_torch.models.layers import drop_path_generator
-from grafp_tpu_torch.train.loss import ntxent_loss
+from grafp_tpu_torch.parallel import distributed
+from grafp_tpu_torch.train.loss import global_views, ntxent_loss
 from grafp_tpu_torch.train.state import TrainState
 
 
@@ -38,7 +55,8 @@ def make_train_step(model: torch.nn.Module, cfg,
     card; raises without it).
 
     step(state, x_i, x_j, generator) -> {"loss", "grad_norm"}
-      x_i, x_j: (B, T) f32 raw waveforms (x_j before augmentation);
+      x_i, x_j: (B, T) f32 raw waveforms (x_j before augmentation), the
+        rank's own rows under a process group;
       generator: the torch.Generator the augment, then DropPath, draw
       from. Updates
       ``state`` (parameters, BatchNorm running statistics, optimizer,
@@ -59,16 +77,27 @@ def make_train_step(model: torch.nn.Module, cfg,
             raise ValueError("make_train_step: the state holds another model")
         x_i = torch.as_tensor(x_i, dtype=torch.float32, device=dev)
         x_j = torch.as_tensor(x_j, dtype=torch.float32, device=dev)
+        b = x_i.shape[0]
+        parallel = distributed.group_active()
+        r, n = distributed.rank(), distributed.world_size()
+        mine = slice(r * b, (r + 1) * b)
         with torch.no_grad():
             if banks is not None:
-                x_j = augment_waveforms(x_j, banks, generator, snr, ir_p, noise_p)
+                draws = sample_augment_draws(banks, n * b, generator, snr, ir_p, noise_p)
+                x_j = augment_with_draws(x_j, banks, draws.rows(mine) if parallel else draws,
+                                         ir_p, noise_p)
             spec = log_mel_spectrogram(torch.cat([x_i, x_j]), mcfg)
-        with drop_path_generator(model, generator):
+        rows = None
+        if parallel:
+            own = torch.arange(mine.start, mine.stop, device=generator.device)
+            rows = (2 * n * b, torch.cat([own, n * b + own]))
+        with drop_path_generator(model, generator, rows):
             _, z = model.train()(spec)
-        b = x_i.shape[0]
-        loss = ntxent_loss(z[:b], z[b:], tau)
+        loss = ntxent_loss(*global_views(z[:b], z[b:]), tau)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if parallel:
+            distributed.average_gradients(model.parameters())
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         gnorm = global_norm(grads)
         for group in state.optimizer.param_groups:

@@ -642,3 +642,56 @@ def test_knn_graph_on_the_card_equals_the_cpu(card, dtype):
         want = knn_graph(x.cpu(), k)
         assert torch.equal(knn_graph(x, k).cpu(), want)
         assert torch.equal(knn_graph(x, k, block_rows=64).cpu(), want)
+
+
+# --- several devices and the timers ------------------------------------------
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_sharded_search_on_the_card_equals_the_cpu(card, metric):
+    """4 row shards on the card (a 'db' mesh of 4 cells on one device) and 4
+    on the CPU: ``exact_topk_sharded`` and ``masked_scan_search_sharded``
+    give the same ids (random rows, no near ties at k = 10) and scores
+    within 1e-5, and the single-card search's ids."""
+    from grafp_tpu_torch.core.mesh import make_mesh, shard_rows
+    from grafp_tpu_torch.retrieval.search import (
+        exact_topk,
+        exact_topk_sharded,
+        masked_scan_search_sharded,
+    )
+
+    g = torch.Generator().manual_seed(1)
+    db, q = torch.randn(1003, 32, generator=g), torch.randn(40, 32, generator=g)
+    got, want = {}, {}
+    for dev, out in ((card, got), (torch.device("cpu"), want)):
+        shards = shard_rows(db, make_mesh(1, 4, [dev] * 4))
+        out["exact"] = exact_topk_sharded(q.to(dev), shards, 10, metric=metric,
+                                          m_valid=1003)
+        if metric == "l2":
+            out["scan"] = masked_scan_search_sharded(q.to(dev), shards, None, None, None,
+                                                     1003, 10, 128)
+    for key, (s, i) in got.items():
+        assert torch.equal(i.cpu(), want[key][1]), key
+        torch.testing.assert_close(s.cpu(), want[key][0], rtol=1e-5, atol=1e-5)
+    assert torch.equal(got["exact"][1].cpu(),
+                       exact_topk(q.to(card), db.to(card), 10, metric=metric)[1].cpu())
+
+
+def test_profiling_timers_on_the_card(card):
+    """``scan_time_per_iter`` and ``IterTimer`` time device work: a 2048^2
+    f32 product within 25 % of its time by CUDA events."""
+    from grafp_tpu_torch.utils.profiling import IterTimer, fence, scan_time_per_iter
+
+    x = torch.randn(2048, 2048, device=card)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    x @ x
+    fence(x)
+    start.record()
+    for _ in range(20):
+        x @ x
+    end.record()
+    end.synchronize()
+    ref = start.elapsed_time(end) / 20 / 1e3
+    fit = scan_time_per_iter(lambda a: a @ a, x, iters_lo=5, iters_hi=25, reps=3)
+    loop = IterTimer(lambda a: a @ a, x).run(20) / 20
+    for got in (fit["per_iter_s"], loop):
+        assert abs(got - ref) <= 0.25 * ref, (got, ref)
