@@ -14,7 +14,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      random and duplicate-row inputs, with weights folded from a
      randomised Grapher, and on random inputs at size s's stage shapes
      (up to C = 640); phases 6 and 7 repeat the first four at the op and
-     train paths' shapes, 2B = 512 in bf16;
+     train paths' shapes, 2B = 512 in bf16. Then the shapes past the
+     one-pass kernels (WIDE_SHAPES: k = 9 and 16 at N = 1024, k = 3 at N =
+     2048, 3200 and 4096, k = 32 at N = 256), where the selection runs in
+     round groups and bitmap windows, #1-#4 on the same three inputs, and
+     #5 at k = 9 on the stage shapes its guard admits;
   4. the serving path: build_model(Config(compute_dtype='bfloat16'),
      fuse_serving='off') with seeded random weights made to behave like
      trained ones (``calibrate`` of tests/torch_port_util.py, shared with the
@@ -48,7 +52,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      fingerprints/s, unfused and fused, and the train step at bsz_train =
      256 as ms, samples/s and peak memory, bf16 and f32; the fused forward
      from log-mel unfolded and folded, with the profiler's share of
-     elementwise and reduction kernels in each;
+     elementwise and reduction kernels in each; then each kernel at the
+     shapes of phase 14's paths, bf16 random inputs, held to its plain
+     version as in phase 3 and timed apart from the main paths' sums: #3
+     at B = 128 on every stage of both (k = 9 at N = 1024 / 512 / 256 /
+     128; k = 3 at N = 3200 / 1600 / 800 / 400), #5 where its guard admits
+     the stage, #4 at the train steps' 2B (512 and 128) on every stage, #1
+     and #2 at stage 1's 2B;
   8. the evaluation path at size t in bf16 with phase 4's weights and the
      'auto' (fused) model: create_dummy_db over 96 seeded music-like
      tracks of 20-40 s (launch counts set to 0 just before the three
@@ -151,12 +161,27 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      of phase 5's, ms a step and peak memory beside phase 5's; (d)
      utils/profiling's scan_time_per_iter and IterTimer on the fused block
      at B = 128 against phase 7's CUDA-event time (within 10 %).
+ 14. the configurations past the one-pass kernels at full width (size t),
+     seeded weights made to behave like trained ones as in phase 4: (a)
+     Config(k=9) in bf16 through fingerprint_waves at B = 128, with the
+     default fuse_serving='auto' (#3 at stage 1, #5 at stages 2-4) and
+     with 'off' (#3 in all 12 blocks), and the folded f32 kernel path, each
+     held to the f32 plain unfolded rows; (b) three bf16 train steps of it
+     at bsz_train = 256 on phase 5's batch and banks, 12 + 12 launches
+     each, losses finite and falling, ms a step and peak memory, and one
+     f32 step at B = 8 with the kernels against the plain versions, as in
+     phase 5; (c) the
+     grafp encoder on config/ast.yaml's frontend (arch 'grafp', hop 161,
+     100 frames: N = 3200 / 1600 / 800 / 400 at k = 3, which the fused
+     block's guard refuses throughout) through the same serving checks and
+     one bf16 train step at bsz_train = WIDE_TRAIN_BSZ.
 
 The line before the last is the card (nvidia-smi), the one before it the
 kernels' JSON (launches by path: the DB build's under "db_build", the
 entry points' under "cli", phase 10's under "baselines", phase 11's under
 "serve_int8" and "serve_int8_static", phase 12's under "ramp_*", "serve_*"
-and "train_*", phase 13's under "train_ddp"); the last line is
+and "train_*", phase 13's under "train_ddp", phase 14's under "k9_*" and
+"n3200_*"); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -186,6 +211,15 @@ STAGES = ((1024, 64), (512, 128), (256, 256), (128, 512))   # (N, C), size t
 STAGES_S = ((1024, 80), (512, 160), (256, 400), (128, 640))  # size s
 BLOCKS = (2, 2, 6, 2)                                      # Graphers per stage
 K = 3
+# phase 3's shapes past the one-pass kernels (k > 8 or k N > 8192),
+# (B, N, C, k): round groups, key and row windows, both
+WIDE_B = 16
+WIDE_SHAPES = ((WIDE_B, 1024, 64, 9), (WIDE_B, 1024, 64, 16), (WIDE_B, 2048, 64, 3),
+               (WIDE_B, 3200, 64, 3), (WIDE_B, 4096, 64, 3), (WIDE_B, 256, 256, 32))
+K9 = 9                         # the Vision GNN paper's k
+AST_STAGES = ((3200, 64), (1600, 128), (800, 256), (400, 512))   # config/ast.yaml's frontend
+WIDE_TRAIN_STEPS = 3           # phase 14's k = 9 steps
+WIDE_TRAIN_BSZ = 64            # phase 14's step on the 3,200-node frontend (2B = 128)
 TRAIN_STEPS = 5
 PARITY_B = 8                   # f32 kernel-vs-plain train step
 OP_B = 512                     # the op path's batch, as the train path's 2B
@@ -258,7 +292,7 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(b: int, n: int, c: int, dtype: torch.dtype, backward: bool):
+def bound_ms(b: int, n: int, c: int, dtype: torch.dtype, backward: bool, k: int = K):
     """(bytes time, operations time) in ms for one call of a selection
     kernel (mrconv_concat and max_neighbors alike). Bytes: forward 3 B N C
     (mrconv_concat: x in, [x || rel - x] out; max_neighbors: keys and x in,
@@ -269,13 +303,13 @@ def bound_ms(b: int, n: int, c: int, dtype: torch.dtype, backward: bool):
     inputs have no ties). The bound is the larger of the two."""
     esize = torch.finfo(dtype).bits // 8
     t_bytes = (4 if backward else 3) * b * n * c * esize / HBM_BYTES_S
-    t_ops = 2 * b * n * n * c / PEAK_OPS_S[dtype] + 2 * K * b * n * n / F32_OPS_S
+    t_ops = 2 * b * n * n * c / PEAK_OPS_S[dtype] + 2 * k * b * n * n / F32_OPS_S
     if backward:
-        t_ops += 2 * K * b * n * c / F32_OPS_S
+        t_ops += 2 * k * b * n * c / F32_OPS_S
     return 1e3 * t_bytes, 1e3 * t_ops
 
 
-def block_bound_ms(b: int, n: int, c: int, dtype: torch.dtype):
+def block_bound_ms(b: int, n: int, c: int, dtype: torch.dtype, k: int = K):
     """(bytes time, operations time) in ms for one fused Grapher block.
     Bytes: x in, out written, the folded weights (7 C^2 in the dtype, 4 C
     f32) read once. Operations: fc1, the grouped conv (dense 2C x 2C), fc2
@@ -284,7 +318,7 @@ def block_bound_ms(b: int, n: int, c: int, dtype: torch.dtype):
     esize = torch.finfo(dtype).bits // 8
     t_bytes = (2 * b * n * c * esize + 7 * c * c * esize + 4 * c * 4) / HBM_BYTES_S
     t_ops = (2 * b * n * c * (7 * c + n) / PEAK_OPS_S[dtype]
-             + 2 * K * b * n * n / F32_OPS_S)
+             + 2 * k * b * n * n / F32_OPS_S)
     return 1e3 * t_bytes, 1e3 * t_ops
 
 
@@ -330,29 +364,40 @@ def op_keys(x: torch.Tensor) -> torch.Tensor:
     return l2_normalize(x)
 
 
-def near_ties(keys: torch.Tensor):
+def near_ties(keys: torch.Tensor, k: int):
     """Per row i of the scores on ``keys``: whether its top-(k+1) scores
     have a gap in the near-tie band, and the (k+1)-th score. The scores
     are taken in f64, exact for bf16 keys: an f32 product (the plain
     version's, or the kernel's) can round two scores 1e-8 apart to one
-    value, a tie that the other side may not see."""
+    value, a tie that the other side may not see. An exact tie is in the
+    band where a key that differs from the candidate's scores the same:
+    the equal scores are sums of different terms, which each side's f32
+    sum may round apart (1 row in 524,288 at k = 9, N = 1024 in bf16);
+    identical keys (duplicated or power-of-two scaled rows) score bit for
+    bit alike on both sides. Keys are told apart by an f64 projection."""
     xn = keys.double()
     scores = torch.bmm(xn, xn.transpose(1, 2))
-    top = scores.topk(K + 1, dim=-1).values
+    top, idx = scores.topk(min(k + 1, scores.shape[-1]), dim=-1)
     gaps = top[..., :-1] - top[..., 1:]
     near = ((gaps > 0) & (gaps < NEAR_TIE_EPS[keys.dtype])).any(-1)
+    proj = torch.randn(keys.shape[-1], generator=torch.Generator().manual_seed(0),
+                       dtype=torch.float64).to(keys.device)
+    h = xn @ proj                                              # (B, N)
+    for m in range(top.shape[-1]):
+        other = h[:, None, :] != h.gather(1, idx[..., m])[..., None]
+        near |= ((scores == top[..., m:m + 1]) & other).any(-1)
     return scores, near, top[..., -1:]
 
 
-def forward_band(keys: torch.Tensor) -> torch.Tensor:
+def forward_band(keys: torch.Tensor, k: int) -> torch.Tensor:
     """Rows i whose own selection may flip."""
-    return near_ties(keys)[1]
+    return near_ties(keys, k)[1]
 
 
-def backward_band(keys: torch.Tensor) -> torch.Tensor:
+def backward_band(keys: torch.Tensor, k: int) -> torch.Tensor:
     """A near tie of row i can move row i's cotangent among its top-(k+1)
     candidates j, so the band covers those rows j of dx."""
-    scores, near, kth = near_ties(keys)
+    scores, near, kth = near_ties(keys, k)
     return ((scores >= kth) & near[..., None]).any(1)
 
 
@@ -375,11 +420,12 @@ def block_within(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return (g32 - w32).abs() <= BLOCK_RTOL + BLOCK_RTOL * w32.abs()
 
 
-def hold(what: str, run, ref, band, label: str, ok=within) -> float:
+def hold(what: str, run, ref, band, label: str, ok=within, k: int = K) -> float:
     """One kernel call against its plain version: two launches bit-equal,
     no differing row outside ``band()`` (a (B, N) mask), at most
-    MAX_FLIP_SHARE of rows differing. Returns the max abs error on the
-    agreeing rows."""
+    MAX_FLIP_SHARE of rows differing, times (k + 1) / (K + 1) past K: the
+    band covers each near-tie row's k + 1 candidates. Returns the max abs
+    error on the agreeing rows."""
     got, again, want = run(), run(), ref()
     torch.cuda.synchronize()
     check(torch.equal(got, again), f"{what} {label}: two launches differ")
@@ -391,13 +437,15 @@ def hold(what: str, run, ref, band, label: str, ok=within) -> float:
     print(f"check {what} {label}: rows differing {flips}/{rows} (outside the "
           f"near-tie band {outside}), max abs err elsewhere {err:.3g}", flush=True)
     check(outside == 0, f"{what} {label}: a row differs that has no near tie")
-    check(flips <= MAX_FLIP_SHARE * rows, f"{what} {label}: too many near-tie flips")
+    check(flips <= MAX_FLIP_SHARE * max(1.0, (k + 1) / (K + 1)) * rows,
+          f"{what} {label}: too many near-tie flips")
     return err
 
 
-def hold_mrconv(x: torch.Tensor, gy: torch.Tensor, label: str) -> dict:
-    """The MRConv kernels (#3, #4) on (x, gy) against their plain versions;
-    the forward's x half must be x bit for bit."""
+def hold_mrconv(x: torch.Tensor, gy, label: str, k: int = K, forward: bool = True) -> dict:
+    """The MRConv kernels against their plain versions: #3 on x (unless not
+    ``forward``), whose x half must be x bit for bit, and #4 on (x, gy)
+    (unless gy is None)."""
     from grafp_tpu_torch.ops.mrconv_concat import (
         mrconv_concat,
         mrconv_concat_backward,
@@ -411,19 +459,21 @@ def hold_mrconv(x: torch.Tensor, gy: torch.Tensor, label: str) -> dict:
         check(torch.equal(out[..., :c], x), f"mrconv_concat {label}: x half differs")
         return out[..., c:]
 
-    keys = concat_keys(x)
-    return {
-        "mrconv_concat": hold(
-            "mrconv_concat", lambda: rel_half(mrconv_concat(x, K)),
-            lambda: mrconv_concat_reference(x, K)[..., c:],
-            lambda: forward_band(keys), label),
-        "mrconv_concat_backward": hold(
-            "mrconv_concat_backward", lambda: mrconv_concat_backward(x, gy, K),
-            lambda: mrconv_concat_backward_reference(x, gy, K),
-            lambda: backward_band(keys), label)}
+    keys, errs = concat_keys(x), {}
+    if forward:
+        errs["mrconv_concat"] = hold(
+            "mrconv_concat", lambda: rel_half(mrconv_concat(x, k)),
+            lambda: mrconv_concat_reference(x, k)[..., c:],
+            lambda: forward_band(keys, k), label, k=k)
+    if gy is not None:
+        errs["mrconv_concat_backward"] = hold(
+            "mrconv_concat_backward", lambda: mrconv_concat_backward(x, gy, k),
+            lambda: mrconv_concat_backward_reference(x, gy, k),
+            lambda: backward_band(keys, k), label, k=k)
+    return errs
 
 
-def hold_max_neighbors(x: torch.Tensor, gy: torch.Tensor, label: str) -> dict:
+def hold_max_neighbors(x: torch.Tensor, gy: torch.Tensor, label: str, k: int = K) -> dict:
     """The max_neighbors kernels (#1, #2) against their plain versions."""
     from grafp_tpu_torch.ops.max_neighbors import (
         max_neighbors,
@@ -435,15 +485,16 @@ def hold_max_neighbors(x: torch.Tensor, gy: torch.Tensor, label: str) -> dict:
     keys = op_keys(x)
     return {
         "max_neighbors": hold(
-            "max_neighbors", lambda: max_neighbors(x, K),
-            lambda: max_neighbors_reference(x, K), lambda: forward_band(keys), label),
+            "max_neighbors", lambda: max_neighbors(x, k),
+            lambda: max_neighbors_reference(x, k), lambda: forward_band(keys, k), label,
+            k=k),
         "max_neighbors_backward": hold(
-            "max_neighbors_backward", lambda: max_neighbors_backward(x, gy, K),
-            lambda: max_neighbors_backward_reference(x, gy, K),
-            lambda: backward_band(keys), label)}
+            "max_neighbors_backward", lambda: max_neighbors_backward(x, gy, k),
+            lambda: max_neighbors_backward_reference(x, gy, k),
+            lambda: backward_band(keys, k), label, k=k)}
 
 
-def hold_grapher_block(x: torch.Tensor, ws, label: str) -> float:
+def hold_grapher_block(x: torch.Tensor, ws, label: str, k: int = K) -> float:
     """The fused Grapher block (#5) against its plain version, outside the
     near-tie band of the plain x1's scores."""
     from grafp_tpu_torch.ops.grapher_block import (
@@ -454,9 +505,9 @@ def hold_grapher_block(x: torch.Tensor, ws, label: str) -> float:
 
     b, n, c = x.shape
     x1 = (_mm(x.reshape(b * n, c), ws[0]) + ws[1]).to(x.dtype).reshape(b, n, c)
-    return hold("grapher_block", lambda: grapher_block(x, K, *ws),
-                lambda: grapher_block_reference(x, K, *ws),
-                lambda: forward_band(concat_keys(x1)), label, ok=block_within)
+    return hold("grapher_block", lambda: grapher_block(x, k, *ws),
+                lambda: grapher_block_reference(x, k, *ws),
+                lambda: forward_band(concat_keys(x1), k), label, ok=block_within, k=k)
 
 
 def stage_weights(c: int, dtype: torch.dtype, seed: int):
@@ -1636,6 +1687,45 @@ def train_once(model, cfg, banks, x_i, x_j, seed: int):
     return m, torch.cuda.max_memory_allocated() / 1e9
 
 
+def hold_train_step(cfg32, what: str, model_seed: int, data_seed: int, counts) -> None:
+    """One f32 train step at B = PARITY_B with the kernels against one with
+    the plain versions, the model from ``model_seed``, the inputs and then
+    the step's generator (the same DropPath masks) from ``data_seed``: loss
+    within LOSS_RTOL, grad norm within GNORM_RTOL, every gradient at a
+    cosine above GRAD_COS (tensors under 1e-4 of the grad norm, zero by
+    construction, skipped)."""
+    from grafp_tpu_torch.models import build_model
+
+    kmodel = build_model(cfg32, generator=torch.Generator().manual_seed(model_seed),
+                         train=True)
+    pmodel = copy.deepcopy(kmodel)
+    gs = torch.Generator(device="cuda").manual_seed(data_seed)
+    xs_i = torch.randn(PARITY_B, cfg32.clip_frames, device="cuda", generator=gs)
+    xs_j = xs_i + 0.3 * torch.randn(PARITY_B, cfg32.clip_frames, device="cuda", generator=gs)
+    before = counts()
+    mk, _ = train_once(kmodel, cfg32, None, xs_i, xs_j, seed=data_seed + 1)
+    check(counts() != before, f"the {what} kernel step launched no kernel")
+    before = counts()
+    with plain_versions():
+        mp, _ = train_once(pmodel, cfg32, None, xs_i, xs_j, seed=data_seed + 1)
+    check(counts() == before, f"the plain {what} step launched a kernel")
+    lk, lp = mk["loss"].item(), mp["loss"].item()
+    gk, gp = mk["grad_norm"].item(), mp["grad_norm"].item()
+    cos, skipped = [], 0
+    for a, b in zip(kmodel.parameters(), pmodel.parameters()):
+        if b.grad.abs().max().item() < 1e-4 * gp:
+            skipped += 1
+            continue
+        cos.append(((a.grad * b.grad).sum() / (a.grad.norm() * b.grad.norm())).item())
+    print(f"{what} train step f32 B={PARITY_B}, kernels vs plain: loss {lk:.7f} vs "
+          f"{lp:.7f} (rel {abs(lk - lp) / abs(lp):.2e}), grad norm {gk:.5f} vs {gp:.5f} "
+          f"(rel {abs(gk - gp) / gp:.2e}), min gradient cos {min(cos):.7f} ({skipped} "
+          "tensors under 1e-4 of the grad norm skipped)", flush=True)
+    check(abs(lk - lp) <= LOSS_RTOL * abs(lp), f"{what} train loss differs from plain")
+    check(abs(gk - gp) <= GNORM_RTOL * gp, f"{what} grad norm differs from plain")
+    check(min(cos) > GRAD_COS, f"a {what} gradient differs from plain")
+
+
 def graph_options_phase(state_dict, waves, z16, banks, x_i, x_j, ref_ms: dict,
                         work: str, zero_counts, counts, card: str) -> dict:
     """Phase 12: the 'ramp' model (serving fused and unfused against its
@@ -1757,27 +1847,7 @@ def graph_options_phase(state_dict, waves, z16, banks, x_i, x_j, ref_ms: dict,
 
     # d. one f32 step at B = 8 with the kernels against the plain versions,
     # the DropPath masks drawn from one seed on both sides
-    kmodel = build_model(cfg32, generator=torch.Generator().manual_seed(8), train=True)
-    pmodel = copy.deepcopy(kmodel)
-    gs = torch.Generator(device="cuda").manual_seed(13)
-    xs_i = torch.randn(PARITY_B, cfg32.clip_frames, device="cuda", generator=gs)
-    xs_j = xs_i + 0.3 * torch.randn(PARITY_B, cfg32.clip_frames, device="cuda", generator=gs)
-    mk, _ = train_once(kmodel, cfg32, None, xs_i, xs_j, seed=14)
-    before = counts()
-    with plain_versions():
-        mp, _ = train_once(pmodel, cfg32, None, xs_i, xs_j, seed=14)
-    check(counts() == before, "the plain ramp step launched a kernel")
-    lk, lp = mk["loss"].item(), mp["loss"].item()
-    gk, gp = mk["grad_norm"].item(), mp["grad_norm"].item()
-    cos_min = min(((a.grad * b.grad).sum() / (a.grad.norm() * b.grad.norm())).item()
-                  for a, b in zip(kmodel.parameters(), pmodel.parameters())
-                  if b.grad.abs().max().item() >= 1e-4 * gp)
-    print(f"ramp train step f32 B={PARITY_B}, kernels vs plain: loss {lk:.7f} vs {lp:.7f}, "
-          f"grad norm {gk:.5f} vs {gp:.5f}, min gradient cos {cos_min:.7f}", flush=True)
-    check(abs(lk - lp) <= LOSS_RTOL * abs(lp), "ramp train loss differs from plain")
-    check(abs(gk - gp) <= GNORM_RTOL * gp, "ramp grad norm differs from plain")
-    check(cos_min > GRAD_COS, "a ramp gradient differs from plain")
-    del kmodel, pmodel
+    hold_train_step(cfg32, "ramp", 8, 13, counts)
 
     # e. remat against no remat: one bf16 step at bsz_train each, one seed
     res = {}
@@ -2067,7 +2137,8 @@ def multi_device_phase(cat: dict, fp9, banks, x_i, x_j, ref: dict, zero_counts,
     print(f"phase 13c took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # d. utils/profiling on the fused block, against phase 7's CUDA events
-    shape = max((r for r in ref["block"] if r["dtype"] == "bfloat16"), key=lambda r: r["ms"])
+    shape = max((r for r in ref["block"] if r["dtype"] == "bfloat16" and r["k"] == K),
+                key=lambda r: r["ms"])
     c = shape["C"]
     x = torch.randn(B, shape["N"], c, generator=torch.Generator(device="cuda").manual_seed(33),
                     device="cuda").to(torch.bfloat16)
@@ -2085,6 +2156,114 @@ def multi_device_phase(cat: dict, fp9, banks, x_i, x_j, ref: dict, zero_counts,
         check(abs(got_ms - shape["ms"]) <= TIMER_RTOL * shape["ms"],
               f"{name} {got_ms:.4f} ms vs phase 7's {shape['ms']:.4f} ms")
     return launches
+
+
+# --- phase 14: the configurations past the one-pass kernels ---------------
+def wide_phase(waves, banks, x_i, x_j, zero_counts, counts, card: str) -> dict:
+    """Phase 14 (see the module docstring): Config(k=9) and the grafp
+    encoder on config/ast.yaml's frontend through the serving and train
+    paths, with launch counts set to 0 just before each path and read just
+    after. Returns {path: {kernel: launches}}."""
+    from grafp_tpu_torch.core import Config, load_config
+    from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram
+    from grafp_tpu_torch.fp import FingerprintPipeline
+    from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.ops.grapher_block import grapher_block_supported
+    from grafp_tpu_torch.train import create_train_state, make_train_step
+
+    ast = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "config",
+                                   "ast.yaml"))
+    ast["arch"] = "grafp"
+    out = {}
+    for tag, base, stages, k, bsz, steps in (
+            ("k9", Config(k=K9), STAGES, K9, len(x_i), WIDE_TRAIN_STEPS),
+            ("n3200", ast, AST_STAGES, K, WIDE_TRAIN_BSZ, 1)):
+        cfg32, cfg16 = copy.deepcopy(base), copy.deepcopy(base)
+        cfg32["compute_dtype"], cfg16["compute_dtype"] = "float32", "bfloat16"
+        check((cfg16.n_mels // cfg16.peak_stride) * cfg16.n_frames == stages[0][0],
+              f"{tag}: stage 1 is not {stages[0][0]} nodes")
+        none = {name: 0 for name in counts()}
+        # seeded weights made to behave like trained ones (phase 4's way),
+        # and the reference: the unfolded f32 model through the plain versions
+        model32 = build_model(cfg32, generator=torch.Generator().manual_seed(20),
+                              fuse_serving="off")
+        randomize(model32, torch.Generator().manual_seed(21))
+        shared().calibrate(model32, clip_spec(cfg32, 256, seed=22))
+        spec = log_mel_spectrogram(waves, LogMelConfig.from_config(cfg32))
+        zero_counts()
+        with plain_versions(), torch.no_grad():
+            _, z32p = model32(spec)
+        check(counts() == none, f"{tag}: the plain path launched a kernel")
+        del spec
+        torch.cuda.empty_cache()
+        paths = [("f32", cfg32, "off", model32)]
+        for fuse in ("auto", "off"):
+            model16 = build_model(cfg16, fuse_serving=fuse)
+            model16.load_state_dict(model32.state_dict())
+            paths.append((f"bf16_{fuse}", cfg16, fuse, model16))
+        for what, cfg, fuse, model in paths:
+            dtype = torch.float32 if what == "f32" else torch.bfloat16
+            fused = sum(nb for (n, c), nb in zip(stages, BLOCKS)
+                        if fuse == "auto" and grapher_block_supported(n, c, dtype, k))
+            pipe = FingerprintPipeline(model, cfg)
+            zero_counts()
+            z = pipe.fingerprint_waves(waves)
+            torch.cuda.synchronize()
+            got = counts()
+            path = f"{tag}_serve" + {"bf16_auto": "", "bf16_off": "_off", "f32": "_f32"}[what]
+            out[path] = got
+            print(f"{tag} serving path {what}: launches {got}", flush=True)
+            check(got == {**none, "grapher_block": fused, "mrconv_concat": sum(BLOCKS) - fused},
+                  f"{tag} {what}: expected {fused} grapher_block and "
+                  f"{sum(BLOCKS) - fused} mrconv_concat launches and no other")
+            check(z.shape == (len(waves), cfg.d) and bool(torch.isfinite(z).all()),
+                  f"{tag} {what}: z not finite or misshapen")
+            if what == "f32":
+                hold_rows(f"{tag} f32 kernel path (folded) vs f32 plain unfolded", z, z32p,
+                          F32_COS)
+            else:
+                hold_rows(f"{tag} {what} kernel path (folded) vs f32 plain unfolded", z, z32p,
+                          COS_MIN_FLOOR, COS_MEAN_FLOOR)
+            ms = time_ms(lambda: pipe.fingerprint_waves(waves), reps=3, warmup=1)
+            print(f"{tag} serving {what} B={len(waves)}: {ms:.3f} ms, "
+                  f"{len(waves) / ms * 1e3:.1f} fp/s [{card}]", flush=True)
+            del pipe, z
+        del paths, model16, model32, z32p
+        torch.cuda.empty_cache()
+
+        tmodel = build_model(cfg16, generator=torch.Generator().manual_seed(23), train=True)
+        state = create_train_state(tmodel, cfg16, steps_per_epoch=100)
+        step = make_train_step(tmodel, cfg16, banks)
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        xi, xj = x_i[:bsz], x_j[:bsz]
+        losses, total = [], {name: 0 for name in none}
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(steps):
+            zero_counts()
+            m = step(state, xi, xj, gen)
+            torch.cuda.synchronize()
+            got = counts()
+            losses.append(m["loss"].item())
+            print(f"{tag} train step {i} bsz_train={bsz}: loss {losses[-1]:.6f} grad norm "
+                  f"{m['grad_norm'].item():.4f}, launches {got}", flush=True)
+            check(got == {**none, "mrconv_concat": sum(BLOCKS),
+                          "mrconv_concat_backward": sum(BLOCKS)},
+                  f"{tag}: expected {sum(BLOCKS)} forward and backward launches per step")
+            total = {name: total[name] + got[name] for name in total}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[f"{tag}_train"] = total
+        check(all(np.isfinite(losses)), f"{tag}: a train loss is not finite")
+        check(steps == 1 or losses[-1] < losses[0], f"{tag}: train losses do not fall")
+        ms = time_ms(lambda: step(state, xi, xj, gen), reps=2, warmup=1)
+        print(f"{tag} train step bf16 bsz_train={bsz} (2B={2 * bsz}): {ms:.3f} ms, "
+              f"{bsz / ms * 1e3:.1f} samples/s; peak memory {peak:.2f} GB "
+              f"(max_memory_allocated) [{card}]", flush=True)
+        del tmodel, state, step
+        torch.cuda.empty_cache()
+        if tag == "k9":
+            hold_train_step(cfg32, tag, 25, 26, counts)
+            torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2192,6 +2371,24 @@ def main() -> int:
             note({"grapher_block": hold_grapher_block(
                 x, stage_weights(c, dtype, seed=10 + c), label)})
             del x
+            torch.cuda.empty_cache()
+    # past the one-pass kernels: round groups of 3 and bitmap windows
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, n, c, k in WIDE_SHAPES:
+            for kind, x in kernel_inputs(n, c, dtype, g, b=b).items():
+                label = f"{str(dtype)[6:]} B={b} N={n} C={c} k={k} {kind}"
+                gy = torch.randn(b, n, 2 * c, generator=g, device="cuda").to(dtype)
+                note(hold_mrconv(x, gy, label, k))
+                note(hold_max_neighbors(x, gy[..., :c].contiguous(), label, k))
+            torch.cuda.empty_cache()
+        for n, c in STAGES:
+            label = f"{str(dtype)[6:]} B={WIDE_B} N={n} C={c} k={K9}"
+            if not grapher_block_supported(n, c, dtype, K9):
+                print(f"grapher_block {label}: refused by the guard")
+                continue
+            ws = stage_weights(c, dtype, seed=10 + c)
+            for kind, x in kernel_inputs(n, c, dtype, g, b=WIDE_B).items():
+                note({"grapher_block": hold_grapher_block(x, ws, f"{label} {kind}", K9)})
             torch.cuda.empty_cache()
 
     # 4. serving path: wave -> fingerprint at full width, bf16
@@ -2332,36 +2529,8 @@ def main() -> int:
           "trained state gives bad fingerprints")
 
     # one f32 step with the kernels against one with the plain versions
-    kmodel = build_model(cfg32, generator=torch.Generator().manual_seed(8), train=True)
-    pmodel = copy.deepcopy(kmodel)
-    xs_i = torch.randn(PARITY_B, cfg32.clip_frames, device="cuda", generator=gw)
-    xs_j = xs_i + 0.3 * torch.randn(PARITY_B, cfg32.clip_frames, device="cuda",
-                                     generator=gw)
-    mk = make_train_step(kmodel, cfg32)(create_train_state(kmodel, cfg32),
-                                        xs_i, xs_j, gen)
-    before = (mrconv_concat.launches, mrconv_concat_backward.launches)
-    with plain_versions():
-        mp = make_train_step(pmodel, cfg32)(create_train_state(pmodel, cfg32),
-                                            xs_i, xs_j, gen)
-    check((mrconv_concat.launches, mrconv_concat_backward.launches) == before,
-          "the plain train step launched a kernel")
-    lk, lp = mk["loss"].item(), mp["loss"].item()
-    gk, gp = mk["grad_norm"].item(), mp["grad_norm"].item()
-    cos_min, skipped = 1.0, 0
-    for a, b in zip(kmodel.parameters(), pmodel.parameters()):
-        if b.grad.abs().max().item() < 1e-4 * gp:
-            skipped += 1                 # zero by construction: noise
-            continue
-        cos = (a.grad * b.grad).sum() / (a.grad.norm() * b.grad.norm())
-        cos_min = min(cos_min, cos.item())
-    print(f"train step f32 B={PARITY_B}, kernels vs plain: loss {lk:.7f} vs "
-          f"{lp:.7f} (rel {abs(lk - lp) / abs(lp):.2e}), grad norm {gk:.5f} vs "
-          f"{gp:.5f} (rel {abs(gk - gp) / gp:.2e}), min gradient cos "
-          f"{cos_min:.7f} ({skipped} tensors under 1e-4 of the grad norm skipped)")
-    check(abs(lk - lp) <= LOSS_RTOL * abs(lp), "train loss differs from plain")
-    check(abs(gk - gp) <= GNORM_RTOL * gp, "grad norm differs from plain")
-    check(cos_min > GRAD_COS, "a gradient differs from plain")
-    del kmodel, pmodel, served
+    hold_train_step(cfg32, "size t", 8, 40, counts)
+    del served
     torch.cuda.empty_cache()
 
     # 6. the op path: max_relative_neighbors(x, k, 'pallas') and its
@@ -2396,12 +2565,12 @@ def main() -> int:
     sums = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0}
             for name in wrappers}
 
-    def record(name, nb, dtype, b, n, c, t_k, t_p, bounds, add=True):
+    def record(name, nb, dtype, b, n, c, t_k, t_p, bounds, add=True, k=K):
         t_by, t_op = bounds
-        per_shape[name].append({"dtype": str(dtype)[6:], "B": b, "N": n, "C": c,
+        per_shape[name].append({"dtype": str(dtype)[6:], "B": b, "N": n, "C": c, "k": k,
                                 "ms": t_k, "plain_ms": t_p,
                                 "bound_ms": max(t_by, t_op)})
-        print(f"time {name} {str(dtype)[6:]} B={b} N={n} C={c}: kernel {t_k:.4f} ms, "
+        print(f"time {name} {str(dtype)[6:]} B={b} N={n} C={c} k={k}: kernel {t_k:.4f} ms, "
               f"plain {t_p:.4f} ms, bound {max(t_by, t_op):.4f} ms "
               f"({'bytes' if t_by >= t_op else 'operations'}) [{card}]", flush=True)
         if add:
@@ -2509,6 +2678,56 @@ def main() -> int:
             + f" [{card}]", flush=True)
     del variants, spec
     torch.cuda.empty_cache()
+    # each kernel at the shapes of phase 14's paths (bf16), held to its plain
+    # version there, then timed apart from the main paths' sums: on every
+    # stage #3 (and #5 where its guard admits the stage) at the serving
+    # batch and #4 at the train step's 2B; #1 and #2 at stage 1's 2B
+    bf16 = torch.bfloat16
+    for tag, stages, k, bt in (("k9", STAGES, K9, 2 * bsz),
+                               ("n3200", AST_STAGES, K, 2 * WIDE_TRAIN_BSZ)):
+        for n, c in stages:
+            x = torch.randn(B, n, c, generator=g, device="cuda").to(bf16)
+            label = f"bfloat16 B={B} N={n} C={c} k={k} random ({tag} serving)"
+            note(hold_mrconv(x, None, label, k))
+            t_k = time_ms(lambda: mrconv_concat(x, k), reps=10)
+            t_p = time_ms(lambda: mrconv_concat_reference(x, k), reps=2, warmup=1)
+            record("mrconv_concat", 0, bf16, B, n, c, t_k, t_p,
+                   bound_ms(B, n, c, bf16, False, k), add=False, k=k)
+            if grapher_block_supported(n, c, bf16, k):
+                ws = stage_weights(c, bf16, seed=10 + c)
+                note({"grapher_block": hold_grapher_block(x, ws, label, k)})
+                t_k = time_ms(lambda: grapher_block(x, k, *ws), reps=10)
+                t_p = time_ms(lambda: grapher_block_reference(x, k, *ws), reps=2, warmup=1)
+                record("grapher_block", 0, bf16, B, n, c, t_k, t_p,
+                       block_bound_ms(B, n, c, bf16, k), add=False, k=k)
+                del ws
+            del x
+            torch.cuda.empty_cache()
+            x = torch.randn(bt, n, c, generator=g, device="cuda").to(bf16)
+            gy = torch.randn(bt, n, 2 * c, generator=g, device="cuda").to(bf16)
+            label = f"bfloat16 B={bt} N={n} C={c} k={k} random ({tag} train)"
+            note(hold_mrconv(x, gy, label, k, forward=False))
+            torch.cuda.empty_cache()
+            t_k = time_ms(lambda: mrconv_concat_backward(x, gy, k), reps=5)
+            t_p = time_ms(lambda: mrconv_concat_backward_reference(x, gy, k), reps=1,
+                          warmup=1)
+            record("mrconv_concat_backward", 0, bf16, bt, n, c, t_k, t_p,
+                   bound_ms(bt, n, c, bf16, True, k), add=False, k=k)
+            if n == stages[0][0]:
+                gy = gy[..., :c].contiguous()
+                note(hold_max_neighbors(x, gy, label, k))
+                for name, run, ref, bwd in (
+                        ("max_neighbors", lambda: max_neighbors(x, k),
+                         lambda: max_neighbors_reference(x, k), False),
+                        ("max_neighbors_backward", lambda: max_neighbors_backward(x, gy, k),
+                         lambda: max_neighbors_backward_reference(x, gy, k), True)):
+                    torch.cuda.empty_cache()
+                    t_k = time_ms(run, reps=5)
+                    t_p = time_ms(ref, reps=1, warmup=1)
+                    record(name, 0, bf16, bt, n, c, t_k, t_p, bound_ms(bt, n, c, bf16, bwd, k),
+                           add=False, k=k)
+            del x, gy
+            torch.cuda.empty_cache()
 
     # 8. the evaluation path; its memmaps stay for phase 11
     print(f"phase 8 at {time.perf_counter() - t_all:.1f} s", flush=True)
@@ -2578,6 +2797,15 @@ def main() -> int:
             del catalogue
             torch.cuda.empty_cache()
             print(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+    # 14. the configurations past the one-pass kernels: k = 9, and the
+    # grafp encoder on config/ast.yaml's 3,200-node frontend
+    print(f"phase 14 at {time.perf_counter() - t_all:.1f} s", flush=True)
+    t14 = time.perf_counter()
+    for path, got in wide_phase(waves, banks, x_i, x_j, zero_counts, counts,
+                                card).items():
+        for name in wrappers:
+            launches[name][path] = got[name]
+    print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     sources = {"mrconv_concat": ("mrconv_concat.cu", "grafp_tpu/ops/pallas_knn.py:376"),

@@ -58,14 +58,14 @@ namespace {
 template <typename T>
 cudaError_t grapher_block(const T* x, const T* w1, const float* c1, const T* wg,
                           const float* cg, const T* w2, const float* c2, T* x1, T* xn,
-                          T* cat, T* gbuf, T* out, int b, int n, int c, int k,
+                          T* cat, T* gbuf, T* out, void* work, int b, int n, int c, int k,
                           cudaStream_t s) {
   const long long m = (long long)b * n;
   cudaError_t err = gemm<kEpiBias>(x, w1, c1, nullptr, x1, m, c, c, s);
   if (err != cudaSuccess) return err;
   err = normalize(x1, xn, m, c, s);
   if (err != cudaSuccess) return err;
-  Args<T> sel{x1, xn, cat, nullptr, nullptr, nullptr, nullptr, b, n, c, k};
+  Args<T> sel{x1, xn, cat, nullptr, nullptr, nullptr, nullptr, b, n, c, k, work};
   err = select_rows<T, false, true>(sel, s);
   if (err != cudaSuccess) return err;
   err = gemm<kEpiBiasRelu>(cat, wg, cg, nullptr, gbuf, m, 2 * c, 2 * c, s);
@@ -77,15 +77,22 @@ cudaError_t grapher_block(const T* x, const T* w1, const float* c1, const T* wg,
 
 extern "C" {
 
+// Bytes of the selection's workspace (0 for most shapes; -1 for a shape or
+// dtype the kernels do not take).
+long long grapher_block_workspace(int b, int n, int c, int k, int dtype) {
+  return select_workspace(b, n, c, k, dtype, false);
+}
+
 // x (B, N, C), w1 (C, C), wg (2C, 2C), w2 (2C, C) in one dtype (0 =
 // float32, 1 = bfloat16); c1 (C), cg (2C), c2 (C) float32; scratch of x's
 // dtype the caller allocates: x1 and xn (B, N, C), cat and gbuf (B, N, 2C);
-// out (B, N, C). Every array contiguous. Returns the CUDA error of the
+// work: grapher_block_workspace bytes (may be null when that is 0); out
+// (B, N, C). Every array contiguous. Returns the CUDA error of the
 // launches (0 on success).
 int grapher_block_forward(const void* x, const void* w1, const void* c1, const void* wg,
                           const void* cg, const void* w2, const void* c2, void* x1,
-                          void* xn, void* cat, void* gbuf, void* out, int b, int n, int c,
-                          int k, int dtype, void* stream) {
+                          void* xn, void* cat, void* gbuf, void* out, void* work, int b,
+                          int n, int c, int k, int dtype, void* stream) {
   if (bad_shape(b, n, c, k)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f1 = static_cast<const float*>(c1);
@@ -96,14 +103,14 @@ int grapher_block_forward(const void* x, const void* w1, const void* c1, const v
     return grapher_block<T>(static_cast<const T*>(x), static_cast<const T*>(w1), f1,
                             static_cast<const T*>(wg), fg, static_cast<const T*>(w2), f2,
                             static_cast<T*>(x1), static_cast<T*>(xn), static_cast<T*>(cat),
-                            static_cast<T*>(gbuf), static_cast<T*>(out), b, n, c, k, s);
+                            static_cast<T*>(gbuf), static_cast<T*>(out), work, b, n, c, k, s);
   }
   if (dtype == 1) {
     using T = __nv_bfloat16;
     return grapher_block<T>(static_cast<const T*>(x), static_cast<const T*>(w1), f1,
                             static_cast<const T*>(wg), fg, static_cast<const T*>(w2), f2,
                             static_cast<T*>(x1), static_cast<T*>(xn), static_cast<T*>(cat),
-                            static_cast<T*>(gbuf), static_cast<T*>(out), b, n, c, k, s);
+                            static_cast<T*>(gbuf), static_cast<T*>(out), work, b, n, c, k, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -33,38 +33,47 @@
 
 extern "C" {
 
+// Bytes of the workspace a call needs (0 for most shapes; -1 for a shape
+// or dtype the kernels do not take), forward (backward = 0) or backward.
+long long max_neighbors_workspace(int b, int n, int c, int k, int dtype, int backward) {
+  return select_workspace(b, n, c, k, dtype, backward != 0);
+}
+
 // xn, x (B, N, C) in, out (B, N, C) rel, one dtype (0 = float32, 1 =
-// bfloat16). Returns the CUDA error of the launch (0 on success).
-int max_neighbors_forward(const void* xn, const void* x, void* out, int b, int n, int c,
-                          int k, int dtype, void* stream) {
+// bfloat16); work: max_neighbors_workspace bytes (may be null when that is
+// 0). Returns the CUDA error of the launch (0 on success).
+int max_neighbors_forward(const void* xn, const void* x, void* out, void* work, int b,
+                          int n, int c, int k, int dtype, void* stream) {
   if (bad_shape(b, n, c, k)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   void* keys = const_cast<void*>(xn);
   if (dtype == 0)
     return select_rows<float, false, false>(
-        make_args<float>(x, keys, out, nullptr, nullptr, nullptr, nullptr, b, n, c, k), s);
+        make_args<float>(x, keys, out, nullptr, nullptr, nullptr, nullptr, b, n, c, k,
+                         work), s);
   if (dtype == 1)
     return select_rows<__nv_bfloat16, false, false>(
         make_args<__nv_bfloat16>(x, keys, out, nullptr, nullptr, nullptr, nullptr,
-                                 b, n, c, k), s);
+                                 b, n, c, k, work), s);
   return cudaErrorInvalidValue;
 }
 
 // xn, x, g (B, N, C) in, dx (B, N, C) out, one dtype; scratch the caller
-// allocates: grs (B, N, k, C) of that dtype and levels (B, N, k) float32.
-// Returns the CUDA error of the launches.
+// allocates: grs (B, N, k, C) of that dtype, levels (B, N, k) float32 and
+// the workspace. Returns the CUDA error of the launches.
 int max_neighbors_backward(const void* xn, const void* x, const void* g, void* grs,
-                           void* levels, void* dx, int b, int n, int c, int k,
-                           int dtype, void* stream) {
+                           void* levels, void* dx, void* work, int b, int n, int c,
+                           int k, int dtype, void* stream) {
   if (bad_shape(b, n, c, k)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   void* keys = const_cast<void*>(xn);
   if (dtype == 0)
     return select_rows<float, true, false>(
-        make_args<float>(x, keys, nullptr, g, grs, levels, dx, b, n, c, k), s);
+        make_args<float>(x, keys, nullptr, g, grs, levels, dx, b, n, c, k, work), s);
   if (dtype == 1)
     return select_rows<__nv_bfloat16, true, false>(
-        make_args<__nv_bfloat16>(x, keys, nullptr, g, grs, levels, dx, b, n, c, k), s);
+        make_args<__nv_bfloat16>(x, keys, nullptr, g, grs, levels, dx, b, n, c, k, work),
+        s);
   return cudaErrorInvalidValue;
 }
 

@@ -79,39 +79,47 @@ cudaError_t dispatch(const Args<T>& a, cudaStream_t s) {
 
 extern "C" {
 
+// Bytes of the workspace a call needs (0 for most shapes; -1 for a shape
+// or dtype the kernels do not take), forward (backward = 0) or backward.
+long long mrconv_concat_workspace(int b, int n, int c, int k, int dtype, int backward) {
+  return select_workspace(b, n, c, k, dtype, backward != 0);
+}
+
 // x, scratch, out: device pointers to contiguous (B, N, C), (B, N, C) and
 // (B, N, 2C) arrays of one dtype (0 = float32, 1 = bfloat16); scratch
-// receives the normalised rows. Returns the CUDA error of the launches (0
-// on success); the caller checks N >= k, 1 <= k <= kMaxK and k * N <=
-// kMaxKN.
-int mrconv_concat_forward(const void* x, void* scratch, void* out, int b, int n, int c,
-                          int k, int dtype, void* stream) {
+// receives the normalised rows; work: mrconv_concat_workspace bytes (may
+// be null when that is 0). Returns the CUDA error of the launches (0 on
+// success); a shape with N < k is refused.
+int mrconv_concat_forward(const void* x, void* scratch, void* out, void* work, int b,
+                          int n, int c, int k, int dtype, void* stream) {
   if (bad_shape(b, n, c, k)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch<float, false>(
-        make_args<float>(x, scratch, out, nullptr, nullptr, nullptr, nullptr, b, n, c, k), s);
+        make_args<float>(x, scratch, out, nullptr, nullptr, nullptr, nullptr, b, n, c, k,
+                         work), s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16, false>(
         make_args<__nv_bfloat16>(x, scratch, out, nullptr, nullptr, nullptr, nullptr,
-                                 b, n, c, k), s);
+                                 b, n, c, k, work), s);
   return cudaErrorInvalidValue;
 }
 
 // x (B, N, C), g (B, N, 2C) in, dx (B, N, C) out, one dtype; scratch the
 // caller allocates: xn (B, N, C) and grs (B, N, k, C) of that dtype,
-// levels (B, N, k) float32. Returns the CUDA error of the launches.
+// levels (B, N, k) float32, and the workspace. Returns the CUDA error of
+// the launches.
 int mrconv_concat_backward(const void* x, const void* g, void* xn, void* grs,
-                           void* levels, void* dx, int b, int n, int c, int k,
-                           int dtype, void* stream) {
+                           void* levels, void* dx, void* work, int b, int n, int c,
+                           int k, int dtype, void* stream) {
   if (bad_shape(b, n, c, k)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch<float, true>(
-        make_args<float>(x, xn, nullptr, g, grs, levels, dx, b, n, c, k), s);
+        make_args<float>(x, xn, nullptr, g, grs, levels, dx, b, n, c, k, work), s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16, true>(
-        make_args<__nv_bfloat16>(x, xn, nullptr, g, grs, levels, dx, b, n, c, k), s);
+        make_args<__nv_bfloat16>(x, xn, nullptr, g, grs, levels, dx, b, n, c, k, work), s);
   return cudaErrorInvalidValue;
 }
 

@@ -53,7 +53,8 @@
 // 16 keys of a tile.
 //
 // Row kernel: one block per (item, tile of 64 rows), 256 threads; KC, the
-// levels a row keeps in registers, is 3 for k <= 3 (the models' k), else 8:
+// levels a row keeps in registers, is 3 for k <= 3 (the models' k) and for
+// the split shapes below, else 8:
 //   1. pass 1: each thread folds its accumulator registers into a list of
 //      each of its two rows' k largest distinct levels with counts
 //      (topk_insert), taking a tile's distinct levels largest first and
@@ -92,7 +93,30 @@
 // bit-equal run to run. The bitmaps' per-row and per-key strides are odd,
 // so the threads' walks read distinct shared-memory banks.
 //
-// The bitmaps bound the shapes: k * N <= kMaxKN (every k <= 8 at N <= 1024).
+// Any k <= N and any N (make_plan). The one-pass kernels above take k <= 8
+// and k * N <= kMaxKN (8192 bits of bitmap per row or key): every shape
+// of the models at k <= 8. Past that the same kernels run split (kSplit),
+// as the Pallas kernels' _select_rounds would with its thresh carried:
+//   * the rounds go in groups of KC = kGroup (3). Pass 1 of group g keeps
+//     the KC largest distinct levels strictly under group g - 1's last
+//     level; the consumed count and that level carry from group to group in
+//     shared memory, and a block stops after the group in which every
+//     row's counts reach k (pass B after the last group with a level);
+//   * the bitmaps cover a window of keys (row kernel) or rows (key kernel)
+//     at a time, sized so that two blocks stay on an SM; the row kernel's
+//     pass 2 and walk run window by window, the key kernel's score pass
+//     and walk group by group and window by window;
+//   * the f32 sums keep their chains: a round's sum carries from window to
+//     window through a workspace (B, N, KC, C) f32, in key order, and
+//     pass B's per-key sum from pass to pass through (B, N, C) f32. The
+//     running max carries from group to group through (B, N, C) f32 (max
+//     is exact and order-free), and pass A keeps the winner as it goes:
+//     the first round whose mean reaches the max, none after a NaN; its
+//     G_r are written after the last group, with each round's count floored
+//     at 1 from (B, N, k). The caller allocates the workspace
+//     (select_workspace gives its size).
+// Scores stay one fixed instruction sequence per (row, key): every pass of
+// every group and window recomputes them bit for bit.
 
 #pragma once
 
@@ -104,9 +128,12 @@
 namespace {
 
 constexpr int kThreads = 256;            // 8 warps
-constexpr int kMaxK = 8;                 // must match MAX_K in ops/mrconv_concat.py
+constexpr int kMaxK = 8;                 // levels in registers, one-pass, k <= 8
 constexpr int kSmallK = 3;               // levels in registers for k <= 3
-constexpr int kMaxKN = 8192;             // must match MAX_KN in ops/mrconv_concat.py
+// levels in registers of a split call, the rounds of one group: three
+// passes of 3 levels run faster than two of 8 (PERF.md, PR 12)
+constexpr int kGroup = kSmallK;
+constexpr int kMaxKN = 8192;             // k * N bits of one bitmap over all N
 constexpr int kRows = 64;                // row tile: 4 warp rows of 16 (the mma's M)
 constexpr int kKeys = 128;               // key tile: 2 warp columns of 64
 constexpr int kWarpKeys = 64;
@@ -119,6 +146,7 @@ constexpr int kPitchB32 = kKeys + 2;     // even: float2 reads
 constexpr float kEps = 1e-12f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kSmemMax = 232448;      // 227 KB opt-in per block
+constexpr size_t kSmemPair = 115712;     // two blocks on an SM's 228 KB, 1 KB reserved each
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -278,15 +306,15 @@ __device__ __forceinline__ float row_max(const float (&acc)[kNT][4], int h) {
   return m;
 }
 
-// Row i's active levels (NaN for the others) from the backward's scratch,
-// and the smallest of them (+inf if none).
+// Row i's active levels of rounds r0 .. r0 + kr - 1 (NaN for the others)
+// from the backward's scratch, and the smallest of them (+inf if none).
 template <int KC>
 __device__ __forceinline__ void row_levels(const float* __restrict__ levels, int n, int k, int i,
-                                           float (&al)[KC], float& lo) {
+                                           int r0, int kr, float (&al)[KC], float& lo) {
   lo = INFINITY;
 #pragma unroll
   for (int r = 0; r < KC; ++r) {
-    al[r] = (i < n && r < k) ? levels[(size_t)i * k + r] : __int_as_float(0x7fc00000);
+    al[r] = (i < n && r < kr) ? levels[(size_t)i * k + r0 + r] : __int_as_float(0x7fc00000);
     if (al[r] == al[r]) lo = fminf(lo, al[r]);
   }
 }
@@ -299,9 +327,10 @@ __device__ __forceinline__ void zero(float (&acc)[kNT][4]) {
 }
 
 // One pass of scores: the fixed tile (the rows from ``fixed`` when
-// kRowsFixed, else the keys from ``fixed``) against every tile of the
-// other side in order. next(acc, origin) computes the next tile into acc
-// and gives the first row or key of that tile; false at the end.
+// kRowsFixed, else the keys from ``fixed``) against the tiles of the other
+// side from ``lo`` (a multiple of the tile) up to ``hi`` (default: all N),
+// in order. next(acc, origin) computes the next tile into acc and gives the
+// first row or key of that tile; false at the end.
 template <typename T, bool kRowsFixed>
 struct ScorePass;
 
@@ -314,20 +343,20 @@ struct ScorePass<__nv_bfloat16, kRowsFixed> {
   static constexpr int kSpan = kRowsFixed ? kKeys : kRows;
   const __nv_bfloat16* xnb;
   __nv_bfloat16* bufs;
-  int n, c, fixed, steps, items, it;
+  int n, c, fixed, lo, steps, items, it;
   bool vec;
 
   __device__ __forceinline__ ScorePass(const __nv_bfloat16* xnb_, int n_, int c_, int fixed_,
-                                       void* stage)
+                                       void* stage, int lo_ = 0, int hi = -1)
       : xnb(xnb_), bufs(static_cast<__nv_bfloat16*>(stage)), n(n_), c(c_), fixed(fixed_),
-        steps((c_ + kStep16 - 1) / kStep16), it(0),
+        lo(lo_), steps((c_ + kStep16 - 1) / kStep16), it(0),
         vec(c_ % 8 == 0 && reinterpret_cast<uintptr_t>(xnb_) % 16 == 0) {
-    items = (n + kSpan - 1) / kSpan * steps;
+    items = ((hi < 0 ? n : hi) - lo + kSpan - 1) / kSpan * steps;
     stage_item(0);
   }
 
   __device__ __forceinline__ void stage_item(int item) {
-    const int o = item / steps * kSpan;
+    const int o = lo + item / steps * kSpan;
     stage_bf16(xnb, n, c, kRowsFixed ? fixed : o, kRowsFixed ? o : fixed,
                item % steps * kStep16, bufs + item % 2 * kBuf, vec);
     cp_async_commit();
@@ -335,7 +364,7 @@ struct ScorePass<__nv_bfloat16, kRowsFixed> {
 
   __device__ __forceinline__ bool next(float (&acc)[kNT][4], int& origin) {
     if (it >= items) return false;
-    origin = it / steps * kSpan;
+    origin = lo + it / steps * kSpan;
     zero(acc);
     for (int s = 0; s < steps; ++s, ++it) {
       if (it + 1 < items) {
@@ -361,16 +390,16 @@ struct ScorePass<float, kRowsFixed> {
   const float* xnb;
   float* as;   // [channel][row]
   float* bs;   // [channel][key]
-  int n, c, fixed, o;
+  int n, c, fixed, o, hi;
 
   __device__ __forceinline__ ScorePass(const float* xnb_, int n_, int c_, int fixed_,
-                                       void* stage)
+                                       void* stage, int lo_ = 0, int hi_ = -1)
       : xnb(xnb_), as(static_cast<float*>(stage)),
         bs(static_cast<float*>(stage) + kStep32 * kPitchA32), n(n_), c(c_), fixed(fixed_),
-        o(0) {}
+        o(lo_), hi(hi_ < 0 ? n_ : hi_) {}
 
   __device__ __forceinline__ bool next(float (&acc)[kNT][4], int& origin) {
-    if (o >= n) return false;
+    if (o >= hi) return false;
     origin = o;
     const int i0 = kRowsFixed ? fixed : o, j0 = kRowsFixed ? o : fixed;
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -535,26 +564,46 @@ normalize_rows_kernel(const T* __restrict__ x, T* __restrict__ xn, long long row
   for (int ch = lane; ch < c; ch += 32) xn[row * c + ch] = from_f<T>(to_f(xr[ch]) / nrm);
 }
 
-// KC: the levels each row keeps in registers (k <= KC).
+// Scratch of the split shapes (make_plan): regions of one workspace the
+// caller allocates, nullptr where the plan needs none.
+struct Work {
+  float* rel;    // (B, N, C): the running max across round groups (row
+                 // kernel); dx's partial sums across passes (key kernel)
+  float* win;    // (B, N, C): the winning round so far, -1 for none (pass A
+                 // across groups)
+  int* div;      // (B, N, k): each round's count floored at 1 (pass A)
+  float* sums;   // (B, N, KC, C): the rounds' partial sums across key windows
+};
+
+// KC: the levels each row keeps in registers, the rounds of one group.
 // kBackward = false: the forward, writes out ((B, N, 2C) for kConcat, else
 // (B, N, C)).
 // kBackward = true: pass A of the backward, reads g (same layouts) and
 // writes grs (B, N, k, C) and levels (B, N, k).
-template <typename T, int KC, bool kBackward, bool kConcat>
+// kSplit = false: one group of k <= KC rounds, one bitmap over all N keys
+// (k * N <= kMaxKN). kSplit = true: groups of KC rounds, each over windows
+// of ``span`` keys (a multiple of kKeys), the state between them in wk.
+template <typename T, int KC, bool kBackward, bool kConcat, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 2)
 mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
                    T* __restrict__ out, const T* __restrict__ g,
                    T* __restrict__ grs, float* __restrict__ levels,
-                   int n, int c, int k) {
+                   Work wk, int n, int c, int k, int span) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* lev = reinterpret_cast<float*>(smem + stage_bytes<T>());   // kRows x KC
   int* cnt = reinterpret_cast<int*>(lev + kRows * KC);              // kRows x KC
   int* nact = cnt + kRows * KC;                                     // kRows
   int* key = nact + kRows;                                          // kRows x KC
   int* tied = key + kRows * KC;                                     // kRows
-  unsigned* hits = reinterpret_cast<unsigned*>(tied + kRows);       // kRows x rw
-  const int words = (n + 31) / 32;
-  const int rw = (k * words) | 1;   // odd: the rows' walks read distinct banks
+  // kSplit, per row: the level that the next group's levels lie under, and
+  // the columns that the rounds so far consumed
+  float* thr = reinterpret_cast<float*>(tied + kRows);              // kRows
+  int* used = reinterpret_cast<int*>(thr + kRows);                  // kRows
+  unsigned* hits = reinterpret_cast<unsigned*>(kSplit ? used + kRows : tied + kRows);
+  if (!kSplit) span = n;
+  const int words = (span + 31) / 32;
+  // kRows x rw; odd: the rows' walks read distinct banks
+  const int rw = ((kSplit ? min(k, KC) : k) * words) | 1;
 
   const int tiles = (n + kRows - 1) / kRows;
   const int b = blockIdx.x / tiles;
@@ -568,21 +617,30 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
   constexpr int kWidth = kConcat ? 2 : 1;        // out and g row widths, in C
   const float nan = __int_as_float(0x7fc00000);
 
-  for (int e = tid; e < kRows * rw; e += kThreads) hits[e] = 0u;
+  if constexpr (!kSplit) {
+    for (int e = tid; e < kRows * rw; e += kThreads) hits[e] = 0u;
+  } else if (tid < kRows) {
+    thr[tid] = INFINITY;
+    used[tid] = 0;
+  }
 
-  // 1. levels and counts, from the accumulators. own: this thread's k-th
-  //    level; fl: the quad's best, a bound no level of the row's top k is
-  //    under, so scores below it are skipped
-  float lv[2][KC], own[2], fl[2];
+  float acc[kNT][4];
+  int j0;
+  for (int r0 = 0;; r0 += KC) {
+  const int kr = kSplit ? min(KC, k - r0) : k;   // this group's rounds
+  // 1. levels and counts, from the accumulators. own: this thread's kr-th
+  //    level; fl: the quad's best, a bound no level of the row's top kr is
+  //    under, so scores below it are skipped; th: the earlier groups' last
+  //    level, which scores must lie under
+  float lv[2][KC], own[2], fl[2], th[2];
   int ct[2][KC], ix[2][KC];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     own[h] = fl[h] = -INFINITY;
+    th[h] = kSplit && r0 > 0 ? thr[row0 + 8 * h] : INFINITY;
 #pragma unroll
     for (int r = 0; r < KC; ++r) { lv[h][r] = -INFINITY; ct[h][r] = 0; ix[h][r] = 0; }
   }
-  float acc[kNT][4];
-  int j0;
   ScorePass<T, true> pass1(xnb, n, c, i0, smem);
   while (pass1.next(acc, j0)) {
     if (j0 + kKeys > n) {   // keys past N never enter
@@ -593,8 +651,16 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
           if (j0 + key0 + 8 * t + e % 2 >= n) acc[t][e] = -INFINITY;
         }
     }
+    if (kSplit && r0 > 0) {   // the earlier groups' levels and all above them
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!(acc[t][e] < th[e / 2])) acc[t][e] = -INFINITY;
+        }
+    }
     // this tile's distinct levels of each row, largest first, while one
-    // can still enter the row's top k: at most k + 1 rounds a row, so a
+    // can still enter the row's top kr: at most kr + 1 rounds a row, so a
     // warp runs the insert a few times a tile, not once a score
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -614,7 +680,7 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
               below = fmaxf(below, s);
             }
           }
-        topk_insert<KC>(lv[h], ct[h], ix[h], own[h], m, w, jm, k);
+        topk_insert<KC>(lv[h], ct[h], ix[h], own[h], m, w, jm, kr);
         m = below;
       }
     }
@@ -641,8 +707,8 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
       }
 #pragma unroll
       for (int r = 0; r < KC; ++r) {
-        if (r < k && oct[r] > 0)
-          topk_insert<KC>(lv[h], ct[h], ix[h], own[h], olv[r], oct[r], oix[r], k);
+        if (r < kr && oct[r] > 0)
+          topk_insert<KC>(lv[h], ct[h], ix[h], own[h], olv[r], oct[r], oix[r], kr);
       }
     }
   }
@@ -657,7 +723,7 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
       }
   }
   __syncthreads();
-  int row_tied = 0;
+  int row_tied = 0, row_more = 0;
   if (wc == 0 && q == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -665,15 +731,16 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
 #pragma unroll
       for (int r = 0; r < KC; ++r) {
         const int oc = cnt[rr * KC + r];
-        if (r < k && oc > 0)
-          topk_insert<KC>(lv[h], ct[h], ix[h], own[h], lev[rr * KC + r], oc, key[rr * KC + r], k);
+        if (r < kr && oc > 0)
+          topk_insert<KC>(lv[h], ct[h], ix[h], own[h], lev[rr * KC + r], oc, key[rr * KC + r], kr);
       }
-      int consumed = 0, active = 0;
+      int consumed = kSplit ? used[rr] : 0, active = 0;
+      const int before = consumed;
 #pragma unroll
       for (int r = 0; r < KC; ++r) {
         lev[rr * KC + r] = lv[h][r];
         cnt[rr * KC + r] = ct[h][r];
-        if (r < k && consumed < k) {
+        if (r < kr && consumed < k) {
           active = r + 1;
           // an empty round still consumes one column (count floored at 1)
           consumed += ct[h][r] > 0 ? ct[h][r] : 1;
@@ -681,7 +748,8 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
       }
       nact[rr] = active;
       // a row whose active rounds each hold one key knows its tie groups
-      // and marks them here; a row with a larger group leaves it to pass 2
+      // and marks them here (kSplit: per window); a row with a larger group
+      // leaves it to pass 2
       int tie = 0;
 #pragma unroll
       for (int r = 0; r < KC; ++r) {
@@ -689,27 +757,44 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
       }
       tied[rr] = tie;
       row_tied |= tie && i0 + rr < n;
+      const int i = i0 + rr;
+      if constexpr (!kSplit) {
 #pragma unroll
-      for (int r = 0; r < KC; ++r) {
-        if (!tie && r < active && ct[h][r] == 1)
-          atomicOr(&hits[rr * rw + r * words + ix[h][r] / 32], 1u << (ix[h][r] % 32));
-      }
-      if constexpr (kBackward) {
-        const int i = i0 + rr;
-        if (i < n) {
-          float* lo = levels + ((size_t)b * n + i) * k;
+        for (int r = 0; r < KC; ++r) {
+          if (!tie && r < active && ct[h][r] == 1)
+            atomicOr(&hits[rr * rw + r * words + ix[h][r] / 32], 1u << (ix[h][r] % 32));
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < KC; ++r) key[rr * KC + r] = ix[h][r];
+        used[rr] = consumed;
+        thr[rr] = lv[h][KC - 1];
+        row_more |= consumed < k && r0 + KC < k && i < n;
+        if (kBackward && i < n) {
 #pragma unroll
           for (int r = 0; r < KC; ++r) {
-            if (r < k) lo[r] = (r < active && ct[h][r] > 0) ? lv[h][r] : nan;
+            if (r < kr) wk.div[((size_t)b * n + i) * k + r0 + r] = ct[h][r] > 0 ? ct[h][r] : 1;
+          }
+          // the row's last group: its later rounds match nothing in pass B
+          if (before < k && consumed >= k) {
+            for (int r = r0 + KC; r < k; ++r) levels[((size_t)b * n + i) * k + r] = nan;
+          }
+        }
+      }
+      if constexpr (kBackward) {
+        if (i < n) {
+          float* lo = levels + ((size_t)b * n + i) * k + r0;
+#pragma unroll
+          for (int r = 0; r < KC; ++r) {
+            if (r < kr) lo[r] = (r < active && ct[h][r] > 0) ? lv[h][r] : nan;
           }
         }
       }
     }
   }
   const bool any_tied = __syncthreads_or(row_tied);
+  const bool more = kSplit && __syncthreads_or(row_more);   // another group follows
 
-  // 2. for the rows with a tie group of two or more keys, mark the keys of
-  //    each active round's tie group
   float al[2][KC], lo[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -721,8 +806,26 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
       if (al[h][r] == al[h][r] && i0 + rr < n && tied[rr]) lo[h] = fminf(lo[h], al[h][r]);
     }
   }
+  int w0 = 0;   // the window's first key
+  do {
+  if constexpr (kSplit) {
+    // the bitmaps of keys w0 .. w0 + span - 1, with the untied rows' keys
+    for (int e = tid; e < kRows * rw; e += kThreads) hits[e] = 0u;
+    __syncthreads();
+    if (tid < kRows && !tied[tid]) {
+#pragma unroll
+      for (int r = 0; r < KC; ++r) {
+        const int j = key[tid * KC + r] - w0;
+        if (r < nact[tid] && cnt[tid * KC + r] == 1 && j >= 0 && j < span)
+          hits[tid * rw + r * words + j / 32] |= 1u << (j % 32);
+      }
+    }
+  }
+
+  // 2. for the rows with a tie group of two or more keys, mark the keys of
+  //    each active round's tie group
   if (any_tied) {
-    ScorePass<T, true> pass2(xnb, n, c, i0, smem);
+    ScorePass<T, true> pass2(xnb, n, c, i0, smem, w0, kSplit ? min(w0 + span, n) : -1);
     while (pass2.next(acc, j0)) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -737,7 +840,7 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
 #pragma unroll
             for (int r = 0; r < KC; ++r) {
               if (al[h][r] == s)
-                atomicOr(&hits[(row0 + 8 * h) * rw + r * words + j / 32], 1u << (j % 32));
+                atomicOr(&hits[(row0 + 8 * h) * rw + r * words + (j - w0) / 32], 1u << (j % 32));
             }
           }
       }
@@ -749,10 +852,11 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
   //    max over the active rounds, then the output row (forward) or the
   //    winners' cotangents (backward). Four threads a row, W channels each
   //    at a time: every thread walks its row's bitmaps itself and keeps its
-  //    own rows' loads in flight.
+  //    own rows' loads in flight. kSplit: the sums carry from window to
+  //    window, the running max (and winner) from group to group, in wk.
   constexpr int W = KC <= kSmallK ? 16 : 8;
   const int rr = tid / 4, i = i0 + rr;
-  if (i >= n) return;
+  if (i < n) {
   const unsigned* rbits = hits + rr * rw;
   const int na = nact[rr];
   int cr[KC];   // the rounds' counts, 0 past the active ones
@@ -762,24 +866,30 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
                                : xb + (size_t)i * c;
   const bool vec = c % (16 / (int)sizeof(T)) == 0 && aligned16(x) && aligned16(own_row) &&
                    aligned16(kBackward ? (const void*)grs : (const void*)out);
+  const size_t row = (size_t)b * n + i;
   for (int c0 = (tid % 4) * W; c0 < c; c0 += 4 * W) {
     const bool full = vec && c0 + W <= c;
     float sum[KC][W], v[W];
 #pragma unroll
-    for (int r = 0; r < KC; ++r)
+    for (int r = 0; r < KC; ++r) {
+      if (kSplit && w0 > 0) {
+        load_lane<W>(wk.sums + (row * KC + r) * c, c0, c, full, sum[r]);
+      } else {
 #pragma unroll
-      for (int e = 0; e < W; ++e) sum[r][e] = 0.f;
+        for (int e = 0; e < W; ++e) sum[r][e] = 0.f;
+      }
+    }
     for (int w = 0; w < words; ++w) {
       unsigned rb[KC], any = 0u;
 #pragma unroll
       for (int r = 0; r < KC; ++r) {
-        rb[r] = r < k ? rbits[r * words + w] : 0u;
+        rb[r] = r < kr ? rbits[r * words + w] : 0u;
         any |= rb[r];
       }
       while (any != 0u) {
         const unsigned bit = any & (0u - any);
         any ^= bit;
-        const int j = w * 32 + __ffs(bit) - 1;
+        const int j = w0 + w * 32 + __ffs(bit) - 1;
         load_lane<W>(xb + (size_t)j * c, c0, c, full, v);
         // a score matches at most one round's level
 #pragma unroll
@@ -791,18 +901,46 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
         }
       }
     }
-    // the means (in place; an empty round's is 0: the reference divides a
-    // zero sum by a count floored at 1) and their running max
-    float rel[W];
+    if (kSplit && w0 + span < n) {   // the next window goes on with these sums
 #pragma unroll
-    for (int e = 0; e < W; ++e) rel[e] = -INFINITY;
+      for (int r = 0; r < KC; ++r) store_lane<W>(wk.sums + (row * KC + r) * c, c0, c, full, sum[r]);
+      continue;
+    }
+    // the means (in place; an empty round's is 0: the reference divides a
+    // zero sum by a count floored at 1) and their running max. kSplit
+    // also keeps the winner as it goes (pass A): the first round whose
+    // mean reaches the running max, none once a NaN enters it, as the
+    // reference's == test against the final max picks
+    float rel[W], wn[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      rel[e] = -INFINITY;
+      wn[e] = -1.f;
+    }
+    if (kSplit && r0 > 0) {
+      load_lane<W>(wk.rel + row * c, c0, c, full, rel);
+      if (kBackward) load_lane<W>(wk.win + row * c, c0, c, full, wn);
+    }
 #pragma unroll
     for (int r = 0; r < KC; ++r)
 #pragma unroll
       for (int e = 0; e < W; ++e) {
         sum[r][e] = cr[r] > 0 ? sum[r][e] / (float)cr[r] : 0.f;
-        if (r < na) rel[e] = max_nan(rel[e], sum[r][e]);
+        if (r < na) {
+          if (kSplit && kBackward) {
+            if (rel[e] != rel[e] || sum[r][e] != sum[r][e])
+              wn[e] = -1.f;
+            else if (wn[e] < 0.f || sum[r][e] > rel[e])
+              wn[e] = (float)(r0 + r);
+          }
+          rel[e] = max_nan(rel[e], sum[r][e]);
+        }
       }
+    if (more) {   // the next group goes on from this max
+      store_lane<W>(wk.rel + row * c, c0, c, full, rel);
+      if (kBackward) store_lane<W>(wk.win + row * c, c0, c, full, wn);
+      continue;
+    }
     if constexpr (kBackward || kConcat)
       load_lane<W>(own_row, c0, c, full, v);   // x for the concat, g_rel for the backward
     if constexpr (!kBackward) {
@@ -815,7 +953,7 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
       } else {
         store_lane<W>(oi, c0, c, full, rel);
       }
-    } else {
+    } else if constexpr (!kSplit) {
       // the first active round whose mean equals the running max wins (a
       // NaN max has no winner, as in the reference's == test)
       T* gi = grs + ((size_t)b * n + i) * k * c;
@@ -834,20 +972,40 @@ mrconv_rows_kernel(const T* __restrict__ x, const T* __restrict__ xn,
         }
         store_lane<W>(gi + (size_t)r * c, c0, c, full, gr);
       }
+    } else {
+      // every round's G_r: g_rel / its count where it won, else 0
+      T* gi = grs + row * k * c;
+      for (int r = 0; r < k; ++r) {
+        const float d = (float)wk.div[row * k + r];
+        float gr[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) gr[e] = wn[e] == (float)r ? v[e] / d : 0.f;
+        store_lane<W>(gi + (size_t)r * c, c0, c, full, gr);
+      }
     }
+  }
+  }
+  if constexpr (kSplit) __syncthreads();   // the walks are done with the bitmaps
+  w0 += span;
+  } while (kSplit && w0 < n);
+  if (!more) break;
   }
 }
 
-// pass B of the backward: dx for one (item, tile of 128 keys j)
-template <typename T, int KC, bool kConcat>
+// pass B of the backward: dx for one (item, tile of 128 keys j). kSplit:
+// the rounds in groups of KC and the rows in windows of ``span`` (a
+// multiple of kRows), dx's partial sums between them in wk.rel.
+template <typename T, int KC, bool kConcat, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 2)
 mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
                    const T* __restrict__ grs, const float* __restrict__ levels,
-                   T* __restrict__ dx, int n, int c, int k) {
+                   T* __restrict__ dx, Work wk, int n, int c, int k, int span) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned* hits = reinterpret_cast<unsigned*>(smem + stage_bytes<T>());  // kKeys x kw
-  const int words = (n + 31) / 32;
-  const int kw = (k * words) | 1;   // odd: the keys' walks read distinct banks
+  if (!kSplit) span = n;
+  const int words = (span + 31) / 32;
+  // odd: the keys' walks read distinct banks
+  const int kw = ((kSplit ? min(k, KC) : k) * words) | 1;
 
   const int tiles = (n + kKeys - 1) / kKeys;
   const int b = blockIdx.x / tiles;
@@ -857,17 +1015,45 @@ mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
   const int row0 = (warp % 4) * 16 + lane / 4;
   const int key0 = (warp / 4) * kWarpKeys + 2 * (lane % 4);
 
-  for (int e = tid; e < kKeys * kw; e += kThreads) hits[e] = 0u;
+  if constexpr (!kSplit) {
+    for (int e = tid; e < kKeys * kw; e += kThreads) hits[e] = 0u;
+  }
 
+  const float* levels_b = levels + (size_t)b * n * k;
+  // kSplit: the rounds in which any row of the item has a level (active
+  // levels are a prefix of a row's k), so the groups after them are skipped
+  int rounds = k;
+  if constexpr (kSplit) {
+    int* top = reinterpret_cast<int*>(hits);
+    if (tid == 0) *top = 0;
+    __syncthreads();
+    int mine = 0;
+    for (int i = tid; i < n; i += kThreads) {
+      const float* li = levels_b + (size_t)i * k;
+      while (mine < k && li[mine] == li[mine]) ++mine;
+    }
+    atomicMax(top, mine);
+    __syncthreads();
+    rounds = *top;
+  }
+  float acc[kNT][4], al[2][KC], lo[2];
+  int i0;
+  for (int r0 = 0;; r0 += KC) {
+  const int kr = kSplit ? min(KC, k - r0) : k;   // this group's rounds
+  int w0 = 0;   // the window's first row
+  do {
+  if constexpr (kSplit) {
+    __syncthreads();   // the walks of the window before are done
+    for (int e = tid; e < kKeys * kw; e += kThreads) hits[e] = 0u;
+    __syncthreads();
+  }
   // the row tiles as the A operand, pass A's tiles and k-order: a score
   // equal to an active level of its row marks the row in the key's bitmap
   // (the levels of a row tile are loaded while the tile before it runs)
-  const float* levels_b = levels + (size_t)b * n * k;
-  float acc[kNT][4], al[2][KC], lo[2];
-  int i0;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) row_levels<KC>(levels_b, n, k, row0 + 8 * h, al[h], lo[h]);
-  ScorePass<T, false> pass(xnb, n, c, j0, smem);
+  for (int h = 0; h < 2; ++h)
+    row_levels<KC>(levels_b, n, k, w0 + row0 + 8 * h, r0, kr, al[h], lo[h]);
+  ScorePass<T, false> pass(xnb, n, c, j0, smem, w0, kSplit ? min(w0 + span, n) : -1);
   while (pass.next(acc, i0)) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -882,11 +1068,12 @@ mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
             if (j0 + jj >= n || !(s >= lo[h])) continue;
 #pragma unroll
             for (int r = 0; r < KC; ++r) {
-              if (al[h][r] == s) atomicOr(&hits[jj * kw + r * words + i / 32], 1u << (i % 32));
+              if (al[h][r] == s)
+                atomicOr(&hits[jj * kw + r * words + (i - w0) / 32], 1u << (i % 32));
             }
           }
       }
-      row_levels<KC>(levels_b, n, k, i + kRows, al[h], lo[h]);
+      row_levels<KC>(levels_b, n, k, i + kRows, r0, kr, al[h], lo[h]);
     }
   }
   __syncthreads();
@@ -894,25 +1081,33 @@ mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
   // per key: G_r(i) of every marking row i, in row order, summed in f32;
   // then the direct term g_x - g_rel (kConcat) and dx in x's dtype. Two
   // threads a key, kLaneCh channels each at a time: every thread walks its
-  // key's bitmaps itself and keeps its own rows' loads in flight.
+  // key's bitmaps itself and keeps its own rows' loads in flight. kSplit:
+  // group by group, window by window, the sums carried in wk.rel.
   const int jj = tid / 2, j = j0 + jj;
-  if (j >= n) return;
+  const bool first = !kSplit || (r0 == 0 && w0 == 0);
+  const bool last = !kSplit || (r0 + KC >= rounds && w0 + span >= n);
+  if (j < n) {
   const unsigned* kb = hits + jj * kw;
   const T* gb = grs + (size_t)b * n * k * c;
   const T* gj = g + ((size_t)b * n + j) * (kConcat ? 2 : 1) * c;
   T* dj = dx + ((size_t)b * n + j) * c;
+  float* pj = wk.rel + ((size_t)b * n + j) * c;
   const bool vec = c % (16 / (int)sizeof(T)) == 0 && aligned16(g) && aligned16(grs) &&
                    aligned16(dx);
   for (int c0 = (tid % 2) * kLaneCh; c0 < c; c0 += 2 * kLaneCh) {
     const bool full = vec && c0 + kLaneCh <= c;
     float sum[kLaneCh], v[kLaneCh];
+    if (first) {
 #pragma unroll
-    for (int e = 0; e < kLaneCh; ++e) sum[e] = 0.f;
+      for (int e = 0; e < kLaneCh; ++e) sum[e] = 0.f;
+    } else {
+      load_lane<kLaneCh>(pj, c0, c, full, sum);
+    }
     for (int w = 0; w < words; ++w) {
       unsigned rb[KC], any = 0u;
 #pragma unroll
       for (int r = 0; r < KC; ++r) {
-        rb[r] = r < k ? kb[r * words + w] : 0u;
+        rb[r] = r < kr ? kb[r * words + w] : 0u;
         any |= rb[r];
       }
       while (any != 0u) {
@@ -923,11 +1118,15 @@ mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
         for (int q = 1; q < KC; ++q) {
           if (rb[q] & bit) r = q;
         }
-        const int i = w * 32 + __ffs(bit) - 1;
-        load_lane<kLaneCh>(gb + ((size_t)i * k + r) * c, c0, c, full, v);
+        const int i = w0 + w * 32 + __ffs(bit) - 1;
+        load_lane<kLaneCh>(gb + ((size_t)i * k + r0 + r) * c, c0, c, full, v);
 #pragma unroll
         for (int e = 0; e < kLaneCh; ++e) sum[e] += v[e];
       }
+    }
+    if (!last) {
+      store_lane<kLaneCh>(pj, c0, c, full, sum);
+      continue;
     }
     if constexpr (kConcat) {
       float gr[kLaneCh];
@@ -937,6 +1136,11 @@ mrconv_keys_kernel(const T* __restrict__ xn, const T* __restrict__ g,
       for (int e = 0; e < kLaneCh; ++e) sum[e] += v[e] - gr[e];
     }
     store_lane<kLaneCh>(dj, c0, c, full, sum);
+  }
+  }
+  w0 += span;
+  } while (kSplit && w0 < n);
+  if (!kSplit || r0 + KC >= rounds) break;
   }
 }
 
@@ -950,6 +1154,7 @@ struct Args {
   float* levels;   // backward scratch: (B, N, k)
   T* dx;           // backward: (B, N, C)
   int b, n, c, k;
+  void* work;      // the workspace of select_workspace's size (nullptr if 0)
 };
 
 template <typename T>
@@ -967,61 +1172,142 @@ cudaError_t prepare(Kernel kernel, size_t smem, long long blocks) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int KC, bool kBackward, bool kConcat>
-cudaError_t launch_rows(const Args<T>& a, cudaStream_t stream) {
-  // staging; levels, counts and keys; active rounds and tie flags; hit
-  // bitmaps over the keys
-  const size_t smem = stage_bytes<T>() + (size_t)kRows * KC * 12 + (size_t)kRows * 8 +
-                      (size_t)kRows * ((a.k * ((a.n + 31) / 32)) | 1) * 4;
+// the row kernel's shared memory without its bitmaps: staging; levels,
+// counts and keys; active rounds and tie flags (kSplit: the carried level
+// and consumed count)
+template <typename T>
+size_t rows_fixed_bytes(int kc, bool split) {
+  return stage_bytes<T>() + (size_t)kRows * kc * 12 + (size_t)kRows * (split ? 16 : 8);
+}
+
+// bytes of ``per`` bitmaps of kg rounds over ``span`` rows or keys (odd stride)
+inline size_t bitmap_bytes(int per, int kg, int span) {
+  return (size_t)per * ((kg * ((span + 31) / 32)) | 1) * 4;
+}
+
+// The window of a split launch: the most rows or keys (a multiple of
+// ``tile``) whose bitmaps fit ``budget`` bytes, then spread evenly over N;
+// all N when they fit at once.
+inline int window(int n, int kg, int tile, int per, size_t budget) {
+  const long long words = ((long long)(budget / (4 * (size_t)per)) - 1) / kg;
+  const long long most = words * 32 / tile * tile;
+  if (most >= n) return n;
+  if (most < tile) return tile;   // larger than the budget: prepare decides
+  const long long parts = (n + most - 1) / most, even = (n + parts - 1) / parts;
+  return (int)((even + tile - 1) / tile * tile);
+}
+
+// What a call runs: the levels per row in registers (kc), whether the
+// rounds go in groups or the bitmaps in windows (split), the windows of
+// the row and key kernels, and the workspace's regions (byte offsets) and
+// size. A split kernel's windows keep two blocks on an SM (kSmemPair).
+struct Plan {
+  int kc, groups, row_span, key_span;
+  bool split;
+  size_t rel, win, div, sums, bytes;
+};
+
+template <typename T>
+Plan make_plan(int b, int n, int c, int k, bool backward) {
+  Plan p{};
+  p.split = k > kMaxK || (long long)k * n > kMaxKN;
+  p.kc = p.split ? kGroup : k <= kSmallK ? kSmallK : kMaxK;
+  p.groups = (k + p.kc - 1) / p.kc;
+  p.row_span = p.key_span = n;
+  if (!p.split) return p;
+  const int kg = k < p.kc ? k : p.kc;
+  p.row_span = window(n, kg, kKeys, kRows, kSmemPair - rows_fixed_bytes<T>(p.kc, true));
+  if (backward) p.key_span = window(n, kg, kRows, kKeys, kSmemPair - stage_bytes<T>());
+  const size_t rows = (size_t)b * n;
+  auto region = [&](size_t bytes) {
+    const size_t at = p.bytes;
+    p.bytes += (bytes + 255) / 256 * 256;
+    return at;
+  };
+  if (p.groups > 1 || (backward && p.key_span < n)) p.rel = region(rows * c * 4);
+  if (backward && p.groups > 1) p.win = region(rows * c * 4);
+  if (backward) p.div = region(rows * k * 4);
+  if (p.row_span < n) p.sums = region(rows * p.kc * c * 4);
+  return p;
+}
+
+inline Work work_of(void* base, const Plan& p) {
+  char* w = static_cast<char*>(base);
+  return Work{reinterpret_cast<float*>(w + p.rel), reinterpret_cast<float*>(w + p.win),
+              reinterpret_cast<int*>(w + p.div), reinterpret_cast<float*>(w + p.sums)};
+}
+
+template <typename T, int KC, bool kBackward, bool kConcat, bool kSplit>
+cudaError_t launch_rows(const Args<T>& a, const Plan& p, cudaStream_t stream) {
+  const size_t smem = rows_fixed_bytes<T>(KC, kSplit) +
+                      bitmap_bytes(kRows, kSplit ? p.kc < a.k ? p.kc : a.k : a.k, p.row_span);
   const long long blocks = (long long)a.b * ((a.n + kRows - 1) / kRows);
-  auto kernel = mrconv_rows_kernel<T, KC, kBackward, kConcat>;
+  auto kernel = mrconv_rows_kernel<T, KC, kBackward, kConcat, kSplit>;
   cudaError_t err = prepare(kernel, smem, blocks);
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(a.x, a.xn, a.out, a.g, a.grs,
-                                                      a.levels, a.n, a.c, a.k);
+                                                      a.levels, work_of(a.work, p), a.n,
+                                                      a.c, a.k, p.row_span);
   return cudaGetLastError();
 }
 
-template <typename T, int KC, bool kConcat>
-cudaError_t launch_keys(const Args<T>& a, cudaStream_t stream) {
+template <typename T, int KC, bool kConcat, bool kSplit>
+cudaError_t launch_keys(const Args<T>& a, const Plan& p, cudaStream_t stream) {
   // staging, hit bitmaps over the rows (a padded stride per key)
-  const size_t smem = stage_bytes<T>() + (size_t)kKeys * ((a.k * ((a.n + 31) / 32)) | 1) * 4;
+  const size_t smem = stage_bytes<T>() +
+                      bitmap_bytes(kKeys, kSplit ? p.kc < a.k ? p.kc : a.k : a.k, p.key_span);
   const long long blocks = (long long)a.b * ((a.n + kKeys - 1) / kKeys);
-  auto kernel = mrconv_keys_kernel<T, KC, kConcat>;
+  auto kernel = mrconv_keys_kernel<T, KC, kConcat, kSplit>;
   cudaError_t err = prepare(kernel, smem, blocks);
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(a.xn, a.g, a.grs, a.levels, a.dx,
-                                                      a.n, a.c, a.k);
+                                                      work_of(a.work, p), a.n, a.c, a.k,
+                                                      p.key_span);
   return cudaGetLastError();
 }
 
-template <typename T, int KC, bool kBackward, bool kConcat>
-cudaError_t select_rows_kc(const Args<T>& a, cudaStream_t s) {
-  cudaError_t err = launch_rows<T, KC, kBackward, kConcat>(a, s);
+template <typename T, int KC, bool kBackward, bool kConcat, bool kSplit>
+cudaError_t select_rows_kc(const Args<T>& a, const Plan& p, cudaStream_t s) {
+  cudaError_t err = launch_rows<T, KC, kBackward, kConcat, kSplit>(a, p, s);
   if (!kBackward || err != cudaSuccess) return err;
-  return launch_keys<T, KC, kConcat>(a, s);
+  return launch_keys<T, KC, kConcat, kSplit>(a, p, s);
 }
 
 // The row kernel on keys a.xn that are already in place; for the backward
 // (pass A) then pass B. k <= 3 (the models' k) keeps 3 levels per row in
-// registers, a larger k kMaxK.
+// registers, a larger k kMaxK; k > kMaxK or k * N > kMaxKN runs split, in
+// groups of kGroup rounds.
 template <typename T, bool kBackward, bool kConcat>
 cudaError_t select_rows(const Args<T>& a, cudaStream_t s) {
-  if (a.k <= kSmallK) return select_rows_kc<T, kSmallK, kBackward, kConcat>(a, s);
-  return select_rows_kc<T, kMaxK, kBackward, kConcat>(a, s);
+  const Plan p = make_plan<T>(a.b, a.n, a.c, a.k, kBackward);
+  if (p.split) {
+    if (p.bytes > 0 && a.work == nullptr) return cudaErrorInvalidValue;
+    return select_rows_kc<T, kGroup, kBackward, kConcat, true>(a, p, s);
+  }
+  if (p.kc == kSmallK) return select_rows_kc<T, kSmallK, kBackward, kConcat, false>(a, p, s);
+  return select_rows_kc<T, kMaxK, kBackward, kConcat, false>(a, p, s);
 }
 
 template <typename T>
 Args<T> make_args(const void* x, void* xn, void* out, const void* g, void* grs,
-                  void* levels, void* dx, int b, int n, int c, int k) {
+                  void* levels, void* dx, int b, int n, int c, int k, void* work) {
   return Args<T>{static_cast<const T*>(x), static_cast<T*>(xn), static_cast<T*>(out),
                  static_cast<const T*>(g), static_cast<T*>(grs),
-                 static_cast<float*>(levels), static_cast<T*>(dx), b, n, c, k};
+                 static_cast<float*>(levels), static_cast<T*>(dx), b, n, c, k, work};
 }
 
+// what the Pallas kernels refuse too (pallas_knn.py asserts N >= k)
 bool bad_shape(int b, int n, int c, int k) {
-  return b < 1 || n < 1 || c < 1 || k < 1 || k > kMaxK || n < k ||
-         (long long)k * n > kMaxKN;
+  return b < 1 || n < 1 || c < 1 || k < 1 || n < k;
+}
+
+// The workspace of a selection call (0 for the shapes that need none), or
+// -1 for a shape or dtype (0 = float32, 1 = bfloat16) it does not take.
+long long select_workspace(int b, int n, int c, int k, int dtype, bool backward) {
+  if (bad_shape(b, n, c, k)) return -1;
+  if (dtype == 0) return (long long)make_plan<float>(b, n, c, k, backward).bytes;
+  if (dtype == 1) return (long long)make_plan<__nv_bfloat16>(b, n, c, k, backward).bytes;
+  return -1;
 }
 
 }  // namespace

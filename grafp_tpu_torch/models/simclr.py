@@ -20,7 +20,6 @@ from grafp_tpu_torch.models.layers import PointwiseConv, init_parameters
 from grafp_tpu_torch.models.nafp import NAFPEncoder
 from grafp_tpu_torch.models.peak_embed import PeakEmbed
 from grafp_tpu_torch.ops.knn import l2_normalize
-from grafp_tpu_torch.ops.mrconv_concat import MAX_K, MAX_KN
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # serve_quant -> the layers' quant mode (grafp_tpu/models/simclr.py:78-89)
@@ -62,27 +61,6 @@ class SimCLRModel(nn.Module):
         return h, z
 
 
-def _check_kernel_shapes(cfg) -> None:
-    """Refuse a Config whose kernel-path Graphers the CUDA selection cannot
-    run: k above MAX_K, or k * N above MAX_KN for the stage-1 node count N
-    (the JAX kernels need only N >= k, ``pallas_knn.py:184,381,594``).
-    Under 'auto' and 'pallas' block 0 is one of them whatever the schedule
-    (its dilation is 1) and has the most nodes; 'exact', 'approx' and
-    'onehot' launch no kernel."""
-    if cfg["knn_strategy"] not in ("auto", "pallas"):
-        return
-    k = int(cfg["k"])
-    kh = int(cfg["blur_kernel"][0])
-    rows = (int(cfg["n_mels"]) + 2 * (kh // 2) - kh) // int(cfg["peak_stride"]) + 1
-    n = rows * int(cfg["n_frames"])
-    if k > MAX_K or k * n > MAX_KN:
-        raise NotImplementedError(
-            f"k={k} with N={n} nodes: the CUDA kernels take k <= {MAX_K} and "
-            f"k * N <= {MAX_KN} (k * N = {k * n}); lifting the limit is a later "
-            "change of the selection (csrc/mrconv_select.cuh); the CPU path "
-            "has no limit")
-
-
 def build_model(cfg, generator: Optional[torch.Generator] = None,
                 device: Optional[Union[str, torch.device]] = None,
                 train: bool = False, fuse_serving: str = "auto") -> SimCLRModel:
@@ -93,9 +71,8 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
     (BatchNorm on batch statistics) when ``train``. Parameters are f32
     in both; ``compute_dtype`` sets the dtype they are cast to at use.
     ``fuse_serving`` goes to every Grapher ('auto': the fused block on the
-    card, the unfused path on the CPU). On a CUDA device a Config whose
-    grafp k or node count the kernels do not take is refused here (the
-    baselines, and 'exact', 'approx' and 'onehot', launch none of them).
+    card, the unfused path on the CPU). The kernels take every k and node
+    count that the JAX package's Pallas kernels take (N >= k).
     The grafp encoder takes the Config's schedules (``dilation_schedule``,
     ``drop_path``, ``drop_path_schedule``), ``knn_strategy`` (an unknown
     one raises ValueError), ``knn_block_size`` and ``remat``, as the JAX
@@ -113,8 +90,6 @@ def build_model(cfg, generator: Optional[torch.Generator] = None,
     arch = cfg["arch"]
     if arch not in ("grafp", "ast", "nafp"):
         raise NotImplementedError(f"arch {arch}")
-    if arch == "grafp" and dev.type == "cuda":
-        _check_kernel_shapes(cfg)
     serve_quant = str(cfg["serve_quant"] or "none").lower()
     if serve_quant not in _QUANT:
         raise ValueError("serve_quant must be one of none|int8|int8_static|"

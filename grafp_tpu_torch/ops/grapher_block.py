@@ -31,7 +31,9 @@ from grafp_tpu_torch.ops.build import load_library
 from grafp_tpu_torch.ops.mrconv_concat import (
     _DTYPE_CODE,
     _check_kernel_input,
+    _ptr,
     _raise_on,
+    _workspace,
     mrconv_concat_reference,
 )
 
@@ -132,11 +134,13 @@ def grapher_block(x: torch.Tensor, k: int, w1, c1, wg, cg, w2, c2) -> torch.Tens
     cat = torch.empty((b, n, 2 * c), dtype=x.dtype, device=x.device)
     gbuf = torch.empty_like(cat)
     lib = _kernel_lib()
+    # the selection's workspace at k > 8 (round groups)
+    work = _workspace(lib.grapher_block_workspace, x, k)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.grapher_block_forward(
             x.data_ptr(), *(w.data_ptr() for w in ws), x1.data_ptr(), xn.data_ptr(),
-            cat.data_ptr(), gbuf.data_ptr(), out.data_ptr(), b, n, c, k,
+            cat.data_ptr(), gbuf.data_ptr(), out.data_ptr(), _ptr(work), b, n, c, k,
             _DTYPE_CODE[x.dtype], stream)
     _raise_on(lib.grapher_block_error, err, "grapher_block")
     grapher_block.launches += 1
@@ -164,7 +168,9 @@ class GrapherBlock(torch.autograd.Function):
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("grapher_block")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.grapher_block_forward.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
+    lib.grapher_block_workspace.argtypes = [i32] * 5
+    lib.grapher_block_workspace.restype = ctypes.c_longlong
+    lib.grapher_block_forward.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]
     lib.grapher_block_forward.restype = i32
     lib.grapher_block_error.argtypes = [i32]
     lib.grapher_block_error.restype = ctypes.c_char_p

@@ -29,9 +29,11 @@ from grafp_tpu_torch.ops.knn import l2_normalize
 from grafp_tpu_torch.ops.mrconv_concat import (
     _DTYPE_CODE,
     _check_kernel_input,
+    _ptr,
     _raise_on,
     _replay,
     _scatter,
+    _workspace,
 )
 
 
@@ -75,10 +77,12 @@ def max_neighbors(x: torch.Tensor, k: int) -> torch.Tensor:
         return out
     xn = _keys(x)
     lib = _kernel_lib()
+    work = _workspace(lib.max_neighbors_workspace, x, k, 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.max_neighbors_forward(xn.data_ptr(), x.data_ptr(), out.data_ptr(),
-                                        b, n, c, k, _DTYPE_CODE[x.dtype], stream)
+                                        _ptr(work), b, n, c, k, _DTYPE_CODE[x.dtype],
+                                        stream)
     _raise_on(lib.max_neighbors_error, err, "max_neighbors")
     max_neighbors.launches += 1
     return out
@@ -95,7 +99,7 @@ def max_neighbors_backward(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Te
     tensor launches the backward kernel on the current stream, or raises.
     The kernel writes the per-round cotangents G (B, N, k, C) in the matmul
     dtype and the active score levels (B, N, k) to scratch allocated
-    here."""
+    here, with the workspace of the shapes that run split."""
     if x.device.type == "cpu":
         return max_neighbors_backward_reference(x, g, k)
     if x.device.type != "cuda":
@@ -115,12 +119,13 @@ def max_neighbors_backward(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Te
     grs = torch.empty((b, n, k, c), dtype=x.dtype, device=x.device)
     levels = torch.empty((b, n, k), dtype=torch.float32, device=x.device)
     lib = _kernel_lib()
+    work = _workspace(lib.max_neighbors_workspace, x, k, 1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.max_neighbors_backward(
             xn.data_ptr(), x.data_ptr(), g.data_ptr(), grs.data_ptr(),
-            levels.data_ptr(), dx.data_ptr(), b, n, c, k, _DTYPE_CODE[x.dtype],
-            stream)
+            levels.data_ptr(), dx.data_ptr(), _ptr(work), b, n, c, k,
+            _DTYPE_CODE[x.dtype], stream)
     _raise_on(lib.max_neighbors_error, err, "max_neighbors_backward")
     max_neighbors_backward.launches += 1
     return dx
@@ -150,9 +155,12 @@ class MaxNeighbors(torch.autograd.Function):
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("max_neighbors")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.max_neighbors_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.max_neighbors_workspace.argtypes = [i32] * 6
+    lib.max_neighbors_workspace.restype = ctypes.c_longlong
+    lib.max_neighbors_forward.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                          ptr]
     lib.max_neighbors_forward.restype = i32
-    lib.max_neighbors_backward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+    lib.max_neighbors_backward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
                                            i32, i32, i32, ptr]
     lib.max_neighbors_backward.restype = i32
     lib.max_neighbors_error.argtypes = [i32]

@@ -40,10 +40,6 @@ import torch
 
 from grafp_tpu_torch.ops.build import load_library
 
-# the kernel keeps each row's top-k score levels in registers
-MAX_K = 8
-# and marks hits in shared-memory bitmaps of k * N bits per row or key
-MAX_KN = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -168,11 +164,26 @@ def _check_kernel_input(x: torch.Tensor, k: int, what: str) -> None:
         raise ValueError(f"{what}: want (B, N, C), got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: x must be contiguous")
+    if k < 1:
+        raise ValueError(f"{what}: k={k} below 1")
     _check_nk(x.shape[1], k)
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{what}: k={k} outside 1..{MAX_K}")
-    if k * x.shape[1] > MAX_KN:
-        raise ValueError(f"{what}: k * N = {k * x.shape[1]} above {MAX_KN}")
+
+
+def _workspace(size_fn, x: torch.Tensor, k: int, *backward: int) -> Optional[torch.Tensor]:
+    """The selection's workspace for x (B, N, C), of the size the library's
+    ``*_workspace`` gives (``csrc/mrconv_select.cuh:make_plan``), or None
+    when the call needs none: shapes past k = 8 or k * N = 8192 carry
+    state between round groups and bitmap windows in it."""
+    b, n, c = x.shape
+    nbytes = size_fn(b, n, c, k, _DTYPE_CODE[x.dtype], *backward)
+    if nbytes < 0:
+        raise ValueError(f"the selection kernels do not take {tuple(x.shape)} "
+                         f"{x.dtype} with k={k}")
+    return torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _raise_on(error_fn, err: int, what: str) -> None:
@@ -200,10 +211,11 @@ def mrconv_concat(x: torch.Tensor, k: int) -> torch.Tensor:
     # the normalised rows, written by the kernel's first launch
     scratch = torch.empty_like(x)
     lib = _kernel_lib()
+    work = _workspace(lib.mrconv_concat_workspace, x, k, 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mrconv_concat_forward(x.data_ptr(), scratch.data_ptr(),
-                                        out.data_ptr(), b, n, c, k,
+                                        out.data_ptr(), _ptr(work), b, n, c, k,
                                         _DTYPE_CODE[x.dtype], stream)
     _raise_on(lib.mrconv_concat_error, err, "mrconv_concat")
     mrconv_concat.launches += 1
@@ -221,7 +233,8 @@ def mrconv_concat_backward(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Te
     tensor launches the backward kernel on the current stream, or raises.
     The kernel writes the normalised rows, the per-round cotangents
     G (B, N, k, C) in the matmul dtype and the active score levels
-    (B, N, k) to scratch allocated here."""
+    (B, N, k) to scratch allocated here, with the workspace of the shapes
+    that run split."""
     if x.device.type == "cpu":
         return mrconv_concat_backward_reference(x, g, k)
     if x.device.type != "cuda":
@@ -241,11 +254,12 @@ def mrconv_concat_backward(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Te
     grs = torch.empty((b, n, k, c), dtype=x.dtype, device=x.device)
     levels = torch.empty((b, n, k), dtype=torch.float32, device=x.device)
     lib = _kernel_lib()
+    work = _workspace(lib.mrconv_concat_workspace, x, k, 1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mrconv_concat_backward(
             x.data_ptr(), g.data_ptr(), xn.data_ptr(), grs.data_ptr(),
-            levels.data_ptr(), dx.data_ptr(), b, n, c, k,
+            levels.data_ptr(), dx.data_ptr(), _ptr(work), b, n, c, k,
             _DTYPE_CODE[x.dtype], stream)
     _raise_on(lib.mrconv_concat_error, err, "mrconv_concat_backward")
     mrconv_concat_backward.launches += 1
@@ -276,11 +290,13 @@ class MRConvConcat(torch.autograd.Function):
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("mrconv_concat")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mrconv_concat_forward.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
-                                          i32, ptr]
+    lib.mrconv_concat_workspace.argtypes = [i32] * 6
+    lib.mrconv_concat_workspace.restype = ctypes.c_longlong
+    lib.mrconv_concat_forward.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                          i32, i32, ptr]
     lib.mrconv_concat_forward.restype = i32
-    lib.mrconv_concat_backward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                                           i32, i32, i32, i32, ptr]
+    lib.mrconv_concat_backward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                           i32, i32, i32, i32, i32, ptr]
     lib.mrconv_concat_backward.restype = i32
     lib.mrconv_concat_error.argtypes = [i32]
     lib.mrconv_concat_error.restype = ctypes.c_char_p

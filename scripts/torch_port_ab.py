@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the port's MRConv kernels (#3 forward, #4 backward), the fused
-Grapher block (#5) and the serving forward between two checkouts, on one
-card, in one call.
+"""A/B of the port's MRConv kernels (#3 forward, #4 backward), the
+neighbour-max kernels (#1 forward, #2 backward), the fused Grapher block
+(#5) and the serving forward between two checkouts, on one card, in one
+call.
 
     python3 scripts/torch_port_ab.py OTHER_CHECKOUT
 
@@ -12,13 +13,14 @@ building its own kernels), in the order other, this, this, other. Every
 side gets the same seeded inputs at the size-t stage shapes:
 ``mrconv_concat`` at B = 128 (f32 and bf16) and B = 512 (bf16),
 ``mrconv_concat_backward`` at B = 128 (f32) and B = 512 (bf16),
-``grapher_block`` at B = 128 (f32 and bf16, the stage shapes its guard
-admits, seeded random folded weights), and the bf16 wave -> fingerprint
-forward at B = 128. The first run of each side saves its kernel outputs;
+``max_neighbors`` and ``max_neighbors_backward`` at B = 128 (f32) and
+B = 512 (bf16), ``grapher_block`` at B = 128 (f32 and bf16, the stage
+shapes its guard admits, seeded random folded weights), and the bf16 wave
+-> fingerprint forward at B = 128. The first run of each side saves its kernel outputs;
 the script then checks that
 
   * f32 outputs are bit-identical across the two trees (hash-equal),
-  * bf16 rows of #3 and #4 that differ between the trees lie inside the
+  * bf16 rows of #1-#4 that differ between the trees lie inside the
     near-tie band of chip_smoke.py (NEAR_TIE_EPS: rows whose plain
     top-(k+1) scores have a gap in (0, 1e-3); for dx, those rows'
     top-(k+1) rows), and
@@ -46,7 +48,9 @@ B, BT, K = 128, 512, 3
 # (op, dtype, batch): what each side runs at every stage shape
 CASES = (("forward", "bfloat16", B), ("forward", "float32", B),
          ("forward", "bfloat16", BT), ("backward", "float32", B),
-         ("backward", "bfloat16", BT), ("block", "float32", B),
+         ("backward", "bfloat16", BT), ("op_forward", "float32", B),
+         ("op_forward", "bfloat16", BT), ("op_backward", "float32", B),
+         ("op_backward", "bfloat16", BT), ("block", "float32", B),
          ("block", "bfloat16", B))
 
 
@@ -67,15 +71,17 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def case_inputs(idx: int, op: str, dtype: str, b: int, n: int, c: int):
-    """The seeded inputs of case ``idx``: x (b, n, c) and, for the
-    backward, the cotangent (b, n, 2c), on the card."""
+    """The seeded inputs of case ``idx``: x (b, n, c) and, for a
+    backward, the cotangent ((b, n, 2c) for #4, (b, n, c) for #2), on the
+    card."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(1000 + idx)
     dt = getattr(torch, dtype)
     x = torch.randn(b, n, c, device="cuda", generator=g).to(dt)
-    gy = (torch.randn(b, n, 2 * c, device="cuda", generator=g).to(dt)
-          if op == "backward" else None)
+    width = {"backward": 2 * c, "op_backward": c}.get(op)
+    gy = (torch.randn(b, n, width, device="cuda", generator=g).to(dt)
+          if width else None)
     return x, gy
 
 
@@ -131,6 +137,7 @@ def worker(root: str, save: str | None) -> dict:
     from grafp_tpu_torch.fp import FingerprintPipeline
     from grafp_tpu_torch.models import build_model
     from grafp_tpu_torch.ops.grapher_block import grapher_block
+    from grafp_tpu_torch.ops.max_neighbors import max_neighbors, max_neighbors_backward
     from grafp_tpu_torch.ops.mrconv_concat import mrconv_concat, mrconv_concat_backward
 
     out = {"ms": {}, "hash": {}, "products_ms": {}}
@@ -140,6 +147,10 @@ def worker(root: str, save: str | None) -> dict:
             run = lambda: mrconv_concat(x, K)  # noqa: E731
         elif op == "backward":
             run = lambda: mrconv_concat_backward(x, gy, K)  # noqa: E731
+        elif op == "op_forward":
+            run = lambda: max_neighbors(x, K)  # noqa: E731
+        elif op == "op_backward":
+            run = lambda: max_neighbors_backward(x, gy, K)  # noqa: E731
         else:
             ws = block_weights(idx, c, dtype)
             run = lambda: grapher_block(x, K, *ws)  # noqa: E731
@@ -166,7 +177,7 @@ def compare(here: str, this_dir: str, other_dir: str) -> bool:
     import torch
 
     sys.path.insert(0, here)
-    from chip_smoke import backward_band, block_within, concat_keys, forward_band
+    from chip_smoke import backward_band, block_within, concat_keys, forward_band, op_keys
 
     from grafp_tpu_torch.ops.grapher_block import _mm, grapher_block_reference
 
@@ -187,7 +198,7 @@ def compare(here: str, this_dir: str, other_dir: str) -> bool:
             ws = block_weights(idx, c, dtype)
             want = grapher_block_reference(x, K, *ws)
             x1 = (_mm(x.reshape(b * n, c), ws[0]) + ws[1]).to(x.dtype).reshape(b, n, c)
-            band = forward_band(concat_keys(x1))
+            band = forward_band(concat_keys(x1), K)
             cols = []
             for name, y in (("this", a), ("other", o)):
                 bad = ~block_within(y, want).all(-1)
@@ -200,8 +211,9 @@ def compare(here: str, this_dir: str, other_dir: str) -> bool:
             del a, o, x, want, x1, band
             torch.cuda.empty_cache()
             continue
-        keys = concat_keys(x)
-        band = forward_band(keys) if op == "forward" else backward_band(keys)
+        keys = op_keys(x) if op.startswith("op_") else concat_keys(x)
+        band = (forward_band(keys, K) if op.endswith("forward")
+                else backward_band(keys, K))
         outside = int((rows & ~band).sum())
         print(f"check {key}: bf16 rows differing {int(rows.sum())}/{rows.numel()}, "
               f"outside the near-tie band {outside}")

@@ -17,6 +17,7 @@ from grafp_tpu_torch.ops.grapher_block import (  # noqa: E402
     _mm,
     grapher_block,
     grapher_block_reference,
+    grapher_block_supported,
 )
 from grafp_tpu_torch.ops.max_neighbors import (  # noqa: E402
     MaxNeighbors,
@@ -35,6 +36,19 @@ from grafp_tpu_torch.ops.mrconv_concat import (  # noqa: E402
 )
 
 pytestmark = pytest.mark.cuda
+
+
+def _util():
+    """tests/torch_port_util.py of this checkout, loaded by its path (a
+    ``tests`` package installed on the card's machine would shadow it)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_util.py")
+    spec = importlib.util.spec_from_file_location("torch_port_util", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 @pytest.fixture()
@@ -82,10 +96,12 @@ def test_kernel_other_k(card, k):
 
 @pytest.mark.parametrize("fault", ["dtype", "contiguous", "k", "rank", "kn"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(card, fault):
+    """What the Pallas kernels refuse too ("k": k < 1; "kn": N < k), and
+    what the kernels' layout needs; every k <= N and any N are taken."""
     x = torch.randn(2, 64, 16, device=card)
     args = {"dtype": (x.half(), 3), "contiguous": (x.transpose(1, 2), 3),
-            "k": (x, 9), "rank": (x[0], 3),
-            "kn": (torch.randn(1, 1100, 8, device=card), 8)}[fault]
+            "k": (x, 0), "rank": (x[0], 3),
+            "kn": (torch.randn(1, 8, 8, device=card), 9)}[fault]
     before = mrconv_concat.launches
     with pytest.raises((TypeError, ValueError)):
         mrconv_concat(*args)
@@ -170,7 +186,19 @@ _EDGES = {
     "all-identical": (2, 130, 40, 3, "item"),      # item 1: a tie group of N in round 0
     "tie-across-row-tiles": (2, 200, 64, 3, "span"),   # rows 40-89: pass B's gather
     "B1-k8": (1, 150, 40, 8, None),
+    # past the one-pass kernels (k <= 8, k N <= 8192): round groups of 3
+    # and windows of the bitmaps (csrc/mrconv_select.cuh: make_plan)
+    "k8-N1024": (1, 1024, 64, 8, None),            # one group, k N = 8192: one pass
+    "k9-N1024": (1, 1024, 64, 9, None),            # one past: three groups
+    "k4-N2048": (1, 2048, 32, 4, None),            # k N = 8192: one pass, one window
+    "k3-N2731": (1, 2731, 32, 3, None),            # k N = 8193: key and row windows
+    "k16-N256-C256": (2, 256, 256, 16, None),      # six groups, wide rows
+    "tie-across-windows": (1, 3200, 64, 3, "window"),  # rows 1000-1799 tie
+    "all-identical-N3200": (2, 3200, 64, 3, "item"),   # item 1: one tie group of N
+    "k=N=40": (2, 40, 24, 40, None),               # 14 groups, every key taken
+    "k=N=130": (1, 130, 24, 130, None),            # 44 groups, three row tiles
 }
+LARGE_GROUPS = ("tie-across-windows", "all-identical-N3200")
 
 
 def _edge_inputs(card, dt, b, n, c, ties):
@@ -180,6 +208,8 @@ def _edge_inputs(card, dt, b, n, c, ties):
         x[1] = x[1, :1]
     elif ties == "span":
         x[:, 40:90] = x[:, 40:41]
+    elif ties == "window":      # across the row kernel's key windows and pass B's row windows
+        x[:, 1000:1800] = x[:, 1000:1001]
     g = torch.randn(b, n, 2 * c, generator=gen)
     return x.to(card, dt), g.to(card, dt)
 
@@ -210,7 +240,11 @@ def test_selection_tile_edges(card, case, dtype):
     differ, at most 1 % of the rows or one: the bf16 scores come from the
     tensor cores, which add each 16-channel step's products in another
     order than the plain version's matmul, so a near tie can flip there
-    that the f32 fmaf chain keeps."""
+    that the f32 fmaf chain keeps. Past k = 8 the backward's band covers
+    each near-tie row's k + 1 candidates, so the cap grows by (k + 1) / 4.
+    The tie groups of 800 and 3,200 rows (LARGE_GROUPS) sum their means in
+    another order than the plain version: rel - x is held within
+    1e-6 + 2^-24 N |x| there (f32)."""
     dt = getattr(torch, dtype)
     b, n, c, k, ties = _EDGES[case]
     x, g = _edge_inputs(card, dt, b, n, c, ties)
@@ -223,7 +257,8 @@ def test_selection_tile_edges(card, case, dtype):
     assert torch.equal(out[..., :c], x)
     rel, want_rel = out[..., c:].float(), want_out[..., c:].float()
     if dt == torch.float32:
-        ok_rel = (rel - want_rel).abs() <= 1e-6
+        ok_rel = (rel - want_rel).abs() <= 1e-6 + (
+            2.0 ** -24 * n * x.abs() if case in LARGE_GROUPS else 0.0)
         ok_dx = (dx - want_dx).abs() <= 1e-5 + 1e-5 * want_dx.abs()
     else:
         ok_rel = (rel - want_rel).abs() <= _bf16_ulp(want_rel)
@@ -231,7 +266,8 @@ def test_selection_tile_edges(card, case, dtype):
     for ok, backward in ((ok_rel, False), (ok_dx, True)):
         bad = ~ok.all(-1)
         assert not bool((bad & ~_near_tie_rows(x, k, backward)).any())
-        assert int(bad.sum()) <= max(1, 0.01 * bad.numel())
+        share = 0.01 * ((k + 1) / 4 if backward and k > 8 else 1.0)
+        assert int(bad.sum()) <= max(1, share * bad.numel())
 
 
 # --- max_neighbors (kernels #1 and #2) -------------------------------------
@@ -432,21 +468,42 @@ def test_fuse_serving_auto_resolves_on_the_tensors_device(card):
     assert grapher_block.launches == before + 1
 
 
-def test_build_model_refuses_what_the_kernels_do_not_take_on_the_card(card):
+def test_k9_runs_on_the_card_and_matches_the_cpu(card):
+    """C1 lifted: build_model(Config(k=9)) no longer refuses the card. Its
+    f32 serving path (k = 9 in round groups; #5 where the guard admits the
+    stage at k = 9 in f32, stage 3, #3 elsewhere) gives every row nearest
+    the same weights' CPU row (hold_rows), above cos 0.9999."""
     from grafp_tpu_torch.core import Config
+    from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram
+    from grafp_tpu_torch.fp import FingerprintPipeline
     from grafp_tpu_torch.models import build_model
 
-    with pytest.raises(NotImplementedError, match="k <= 8 and k \\* N <= 8192"):
-        build_model(Config(k=9), device=card)
-    assert build_model(Config(k=9), device="cpu") is not None
+    util = _util()
+    cfg = Config(k=9)
+    ref = build_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    waves = torch.randn(16, cfg.fs, generator=g)
+    util.calibrate(ref, log_mel_spectrogram(torch.randn(32, cfg.fs, generator=g),
+                                            LogMelConfig.from_config(cfg)))
+    model = build_model(cfg, device=card)
+    model.load_state_dict(ref.state_dict())
+    before = (mrconv_concat.launches, grapher_block.launches)
+    z = FingerprintPipeline(model, cfg).fingerprint_waves(waves.to(card)).cpu()
+    torch.cuda.synchronize()
+    fused = sum(nb for n, c, nb in ((1024, 64, 2), (512, 128, 2), (256, 256, 6), (128, 512, 2))
+                if grapher_block_supported(n, c, torch.float32, 9))
+    assert fused == 6
+    assert (mrconv_concat.launches - before[0], grapher_block.launches - before[1]) == (
+        12 - fused, fused)
+    want = FingerprintPipeline(ref, cfg, device="cpu").fingerprint_waves(waves)
+    util.hold_rows("k = 9 on the card vs the CPU", z, want, 0.9999)
 
 
 @pytest.mark.parametrize("arch", ["ast", "nafp"])
 def test_baselines_serve_on_the_card_without_a_kernel(card, arch):
-    """build_model of the baselines on the card (the grafp kernel-shape
-    check does not apply: under config/ast.yaml it would refuse k * N =
-    9600): the bf16 pipeline launches no kernel of the port, and its rows
-    lie nearest the same weights' f32 rows on the CPU, above cos 0.99."""
+    """build_model of the baselines on the card: the bf16 pipeline
+    launches no kernel of the port, and its rows lie nearest the same
+    weights' f32 rows on the CPU, above cos 0.99."""
     import copy
     import os
 

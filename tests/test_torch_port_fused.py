@@ -87,6 +87,27 @@ def test_reference_matches_pallas(n, c, kind, dt):
         assert _bf16_row_ok(got, want).all()
 
 
+@pytest.mark.parametrize("kind", ["random", "duplicates"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_reference_matches_pallas_at_k9(kind, dt):
+    """k = 9 (the card's selection in two round groups) on a stage shape
+    the guard admits at k = 9 (N = 128, C = 32), at the tolerances above."""
+    n, c, k = 128, 32, 9
+    tdt, jdt = DTYPES[dt]
+    assert grapher_block_supported(n, c, tdt, k)
+    x, ws = _block_inputs(n, c, kind, np.random.RandomState(n + c))
+    jws = [jnp.asarray(w).astype(jdt if i % 2 == 0 else jnp.float32)
+           for i, w in enumerate(ws)]
+    want = np.asarray(grapher_block_pallas(jnp.asarray(x).astype(jdt), k, *jws,
+                                           interpret=True).astype(jnp.float32))
+    tws = [to_torch(w, tdt if i % 2 == 0 else torch.float32) for i, w in enumerate(ws)]
+    got = grapher_block_reference(to_torch(x, tdt), k, *tws).float().numpy()
+    if dt == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _bf16_row_ok(got, want).all()
+
+
 def test_wrapper_uses_plain_version_on_cpu_and_guards(rng):
     x, ws = _block_inputs(16, 8, "random", rng)
     xt, tws = to_torch(x), [to_torch(w) for w in ws]

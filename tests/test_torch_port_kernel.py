@@ -25,7 +25,15 @@ from grafp_tpu_torch.ops.mrconv_concat import (  # noqa: E402
     mrconv_concat_backward_reference,
     mrconv_concat_reference,
 )
-from tests.torch_port_util import bf16_ulp, to_torch  # noqa: E402
+from tests.torch_port_util import (  # noqa: E402
+    WIDE_IDS,
+    WIDE_KINDS,
+    WIDE_SHAPES,
+    bf16_ulp,
+    to_torch,
+    wide_f32_tol,
+    wide_input,
+)
 
 
 def _pallas(x: np.ndarray, k: int, bf16: bool = False) -> np.ndarray:
@@ -49,6 +57,26 @@ def test_reference_matches_pallas_f32(rng, shape, k):
 @pytest.mark.parametrize("shape,k", [((2, 64, 16), 3), ((3, 16, 4), 2)])
 def test_reference_matches_pallas_bf16(rng, shape, k):
     x = rng.randn(*shape).astype(np.float32)
+    got, want = _port(x, k, True), _pallas(x, k, True)
+    c = shape[-1]
+    np.testing.assert_array_equal(got[..., :c], want[..., :c])
+    assert (np.abs(got - want) <= bf16_ulp(want)).all()
+
+
+@pytest.mark.parametrize("kind", WIDE_KINDS)
+@pytest.mark.parametrize("shape,k", WIDE_SHAPES, ids=WIDE_IDS)
+def test_reference_matches_pallas_past_the_old_limit(rng, shape, k, kind):
+    """k = 8, 9, 16 at N = 1024, k = 3 at N = 3200 and k = N: the shapes
+    the card's selection takes in round groups and key windows. f32 within
+    1e-6 (wide_f32_tol: where a tie group outgrows it, the N/8 identical
+    rows of 'duplicates' on the rows that take them in and the scaled
+    copies of 'straddle', the rounding of the group's mean, which each side
+    sums in another order, is added: up to 3.4e-6 |x| measured at N =
+    3200); bf16 as the module."""
+    x = wide_input(shape, k, kind, rng)
+    got, want = _port(x, k), _pallas(x, k)
+    tol = np.concatenate([np.full(x.shape, 1e-6), wide_f32_tol(x, k, kind)], -1)
+    assert (np.abs(got - want) <= tol).all()
     got, want = _port(x, k, True), _pallas(x, k, True)
     c = shape[-1]
     np.testing.assert_array_equal(got[..., :c], want[..., :c])
@@ -156,6 +184,24 @@ def test_backward_reference_matches_pallas_vjp(rng, kind, bf16):
                                    atol=0.02 * np.abs(want).max())
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", WIDE_KINDS)
+@pytest.mark.parametrize("shape,k", WIDE_SHAPES, ids=WIDE_IDS)
+def test_backward_reference_matches_pallas_vjp_past_the_old_limit(rng, shape, k, kind):
+    """The backward at the shapes of
+    test_reference_matches_pallas_past_the_old_limit, f32 and bf16."""
+    x = wide_input(shape, k, kind, rng)
+    g = rng.randn(*x.shape[:-1], 2 * x.shape[-1]).astype(np.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        want = _pallas_vjp(x, g, k, dt == torch.bfloat16)
+        got = mrconv_concat_backward_reference(to_torch(x, dt), to_torch(g, dt), k)
+        got = got.float().numpy()
+        if dt == torch.bfloat16:
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=0.02 * np.abs(want).max())
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("n,c", [(1024, 64), (512, 128)])

@@ -33,7 +33,15 @@ from grafp_tpu_torch.ops.max_neighbors import (  # noqa: E402
     max_neighbors_reference,
 )
 from grafp_tpu_torch.ops.mrconv_neighbors import max_relative_neighbors  # noqa: E402
-from tests.torch_port_util import bf16_ulp, to_torch  # noqa: E402
+from tests.torch_port_util import (  # noqa: E402
+    WIDE_IDS,
+    WIDE_KINDS,
+    WIDE_SHAPES,
+    bf16_ulp,
+    to_torch,
+    wide_f32_tol,
+    wide_input,
+)
 
 
 def _inputs(kind: str, rng):
@@ -76,6 +84,26 @@ def test_reference_matches_pallas(rng, kind, dt):
         assert (np.abs(got - want) <= bf16_ulp(want)).all()
 
 
+@pytest.mark.parametrize("kind", WIDE_KINDS)
+@pytest.mark.parametrize("shape,k", WIDE_SHAPES, ids=WIDE_IDS)
+def test_reference_matches_pallas_past_the_old_limit(rng, shape, k, kind):
+    """k = 8, 9, 16 at N = 1024, k = 3 at N = 3200 and k = N: the shapes
+    the card's selection takes in round groups and key windows. f32 within
+    1e-6 (wide_f32_tol: where a tie group outgrows it, the N/8 identical
+    rows of 'duplicates' on the rows that take them in and the scaled
+    copies of 'straddle', the rounding of the group's mean, which each side
+    sums in another order, is added); bf16 as the module."""
+    x = wide_input(shape, k, kind, rng)
+    for tdt, jdt in DTYPES.values():
+        want = np.asarray(max_neighbors_pallas(jnp.asarray(x).astype(jdt), k, True)
+                          .astype(jnp.float32))
+        got = max_neighbors_reference(to_torch(x, tdt), k).float().numpy()
+        if tdt == torch.float32:
+            assert (np.abs(got - want) <= wide_f32_tol(x, k, kind)).all()
+        else:
+            assert (np.abs(got - want) <= bf16_ulp(want)).all()
+
+
 def test_duplicate_rows_take_their_own_feature(rng):
     """5 identical rows: their 3 nearest are the duplicates, whose tie
     group's mean is the row itself."""
@@ -107,6 +135,23 @@ def test_backward_reference_matches_pallas_vjp(rng, kind, dt):
         np.testing.assert_allclose(got, want, rtol=0, atol=0.02 * np.abs(want).max())
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", WIDE_KINDS)
+@pytest.mark.parametrize("shape,k", WIDE_SHAPES, ids=WIDE_IDS)
+def test_backward_reference_matches_pallas_vjp_past_the_old_limit(rng, shape, k, kind):
+    """The backward at the shapes of
+    test_reference_matches_pallas_past_the_old_limit, f32 and bf16."""
+    x = wide_input(shape, k, kind, rng)
+    g = rng.randn(*x.shape).astype(np.float32)
+    for tdt, jdt in DTYPES.values():
+        want = _pallas_vjp(x, g, k, jdt)
+        got = max_neighbors_backward_reference(to_torch(x, tdt), to_torch(g, tdt), k)
+        got = got.float().numpy()
+        if tdt == torch.bfloat16:
+            np.testing.assert_allclose(got, want, rtol=0, atol=0.02 * np.abs(want).max())
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 def test_n_less_than_k_raises(rng):

@@ -53,6 +53,65 @@ def bf16_ulp(ref: np.ndarray) -> np.ndarray:
     return np.exp2(np.floor(np.log2(mag)) - 7)
 
 
+# Shapes past the one-pass selection kernels' old limit (k <= 8 and
+# k * N <= 8192) that the card's split selection takes: k = 8 at the old
+# edge, 9 and 16 in round groups, 3,200 nodes (the ast frontend's stage 1)
+# in key windows, and k = N.
+WIDE_SHAPES = [((1, 1024, 8), 8), ((1, 1024, 8), 9), ((1, 1024, 8), 16),
+               ((1, 3200, 4), 3), ((1, 12, 4), 12)]
+WIDE_IDS = [f"N{s[1]}-k{k}" for s, k in WIDE_SHAPES]
+WIDE_KINDS = ["random", "duplicates", "scaled", "straddle"]
+
+
+def wide_input(shape, k: int, kind: str, rng) -> np.ndarray:
+    """x (B, N, C) of ``kind``: random; duplicates (the first N/8 rows, at
+    least 2, identical: a tie group larger than k at N = 1024); scaled
+    (x[1::4] = 2 x[0::4], exact ties between distinct rows); straddle
+    (groups of s power-of-two scaled copies, s the smallest size that does
+    not divide k, so a tie group crosses the k budget); identical (every row
+    the first: one tie group of N)."""
+    x = rng.randn(*shape).astype(np.float32)
+    n = shape[1]
+    if kind == "duplicates":
+        x[:, : max(n // 8, 2)] = x[:, :1]
+    elif kind == "scaled":
+        x[:, 1::4] = 2.0 * x[:, 0::4]
+    elif kind == "straddle":
+        s = straddle_size(k)
+        for t in range(1, s):
+            x[:, t::s] = 2.0 ** t * x[:, 0::s][:, : x[:, t::s].shape[1]]
+    elif kind == "identical":
+        x[:] = x[:, :1]
+    return x
+
+
+def straddle_size(k: int) -> int:
+    """wide_input's 'straddle' group size: the smallest s >= 2 that does
+    not divide k."""
+    return next(s for s in range(2, k + 2) if k % s)
+
+
+def wide_f32_tol(x: np.ndarray, k: int, kind: str) -> np.ndarray:
+    """The f32 tolerance (B, N, C) of a neighbour mean on wide_input's
+    ``x``: 1e-6, plus the rounding of a tie group's mean, which each side
+    sums in another order, up to about half an ulp a term, where the
+    groups outgrow it: for 'duplicates', only on the rows whose k selected
+    neighbours take in its group (the first max(N/8, 2) rows, identical),
+    2^-24 (N/8) |x_0|; for 'straddle', whose every row lies in a group of s
+    power-of-two scaled copies (up to 2^(s-1) |x|), 2^-24 s max|x|."""
+    tol = np.full(x.shape, 1e-6)
+    if kind == "straddle":
+        return tol + 2.0 ** -24 * straddle_size(k) * np.abs(x).max(1, keepdims=True)
+    if kind != "duplicates":
+        return tol
+    xn = x.astype(np.float64)
+    xn /= np.linalg.norm(xn, axis=-1, keepdims=True)
+    scores = np.einsum("bnc,bmc->bnm", xn, xn)
+    takes = (scores > scores[..., :1]).sum(-1) < k        # (B, N)
+    group = max(x.shape[1] // 8, 2)
+    return tol + 2.0 ** -24 * group * np.abs(x[:, :1]) * takes[..., None]
+
+
 def to_torch(a: np.ndarray, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32)).to(dtype)
 
