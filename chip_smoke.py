@@ -175,6 +175,22 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      100 frames: N = 3200 / 1600 / 800 / 400 at k = 3, which the fused
      block's guard refuses throughout) through the same serving checks and
      one bf16 train step at bsz_train = WIDE_TRAIN_BSZ.
+ 15. the captured serving forward: every FingerprintPipeline call above
+     replays one CUDA graph per input shape (grafp_tpu_torch/fp/graphs.py),
+     captured at the shape's first call. Here, at full width (size t) on
+     phase 4's weights, the fused bf16, unfused bf16, f32 and int8_static
+     (calibrated lazily first) models and the AST (config/ast.yaml, seeded
+     as in phase 10): embed at B = 128 and 256 against the eager forward
+     of the same folded model (pipeline.model called directly) on the same
+     input, with equal launch counts; the rows not equal bit for bit are
+     counted, with the largest |d|, and held (hold_rows) at the floors of
+     phases 4 and 11; eager and captured ms in turns, each graph's pool
+     bytes and its warm-up and capture seconds; fingerprint_waves at B =
+     128 captured against eager (fp/s); a 37.3 s track through
+     fingerprint_track (full batches) against the eager embedding of its
+     segments in batches with a ragged last one (the parent's path); and
+     create_dummy_db over 32 tracks of 20-40 s with the graphs and eagerly,
+     in turns (rows, launches, fp/s).
 
 The line before the last is the card (nvidia-smi), the one before it the
 kernels' JSON (launches by path: the DB build's under "db_build", the
@@ -2266,6 +2282,177 @@ def wide_phase(waves, banks, x_i, x_j, zero_counts, counts, card: str) -> dict:
     return out
 
 
+# --- phase 15: the captured serving forward --------------------------------
+GRAPH_TRACK_S = 37.3           # the ragged track: 379 segments, a last batch of 123
+GRAPH_DB_TRACKS = 32           # tracks of 20-40 s in the DB build's A/B
+
+
+def graph_rows(what: str, got, want, floor, mean_floor=None) -> None:
+    """The captured rows ``got`` against the eager ``want``: the count of
+    rows not equal bit for bit and the largest |d| are printed; if any
+    differ, all are held by ``hold_rows`` at the floors."""
+    differ = (got != want).any(-1)
+    n = int(differ.sum())
+    print(f"{what}: {n} of {len(got)} rows differ from the eager forward, max |d| "
+          f"{float((got - want).abs().max()):.3g}", flush=True)
+    if n:
+        hold_rows(what, got, want, floor, mean_floor)
+
+
+def in_turns(eager, captured, reps: int) -> dict:
+    """ms a call of ``eager`` and ``captured``, timed in turns (eager,
+    captured, captured, eager): {"eager": [t, t], "captured": [t, t]}."""
+    ms = {"eager": [], "captured": []}
+    for turn in ("eager", "captured", "captured", "eager"):
+        ms[turn].append(time_ms(eager if turn == "eager" else captured, reps=reps))
+    return ms
+
+
+def graph_phase(state_dict, zero_counts, counts, card: str) -> None:
+    """Phase 15 (see the module docstring): each serving model of phase 4
+    (fused bf16, unfused bf16, f32, int8_static) and the AST, captured
+    against eager at B and 2B; a ragged track against the parent's eager
+    embedding; a DB build with and without graphs. Every check raises."""
+    from grafp_tpu_torch.core import Config, load_config
+    from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram
+    from grafp_tpu_torch.fp import FingerprintPipeline
+    from grafp_tpu_torch.fp.builder import _serve
+    from grafp_tpu_torch.models import build_model
+
+    ast_cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "config", "ast.yaml"))
+    bf16 = (COS_MIN_FLOOR, COS_MEAN_FLOOR)
+    variants = (("fused bf16", Config(compute_dtype="bfloat16"), "auto", bf16),
+                ("unfused bf16", Config(compute_dtype="bfloat16"), "off", bf16),
+                ("f32", Config(), "auto", (F32_COS, None)),
+                ("int8_static bf16", Config(compute_dtype="bfloat16",
+                                            serve_quant="int8_static"), "auto",
+                 (QUANT_FLOOR, None)),
+                ("AST bf16", ast_cfg, None, bf16))
+    for name, cfg, fuse, floors in variants:
+        if fuse is None:
+            model = build_model(cfg, generator=torch.Generator().manual_seed(30))
+            shared().calibrate_baseline(model, seed=31)
+        else:
+            model = build_model(cfg, fuse_serving=fuse)
+            model.load_state_dict(state_dict)
+        pipe = FingerprintPipeline(model, cfg)
+        del model
+        if pipe._needs_calibration:             # lazily, before the first capture
+            pipe.fingerprint_waves(clip_waves(B, cfg.fs, seed=31))
+            check(not pipe._needs_calibration, f"{name}: not calibrated")
+        spec = log_mel_spectrogram(clip_waves(2 * B, cfg.fs, seed=50),
+                                   LogMelConfig.from_config(cfg))
+        for b in (B, 2 * B):
+            x = spec[:b]
+            new = (tuple(x.shape), x.dtype, x.device) not in pipe.graphs.entries
+            zero_counts()
+            zg = pipe.embed(x)
+            torch.cuda.synchronize()
+            got = counts()
+            zero_counts()
+            with torch.inference_mode():
+                ze = _serve(pipe.model, x)
+            torch.cuda.synchronize()
+            check(got == counts(), f"{name} B={b}: captured launches {got}, eager {counts()}")
+            check(zg.shape == (b, cfg.d) and bool(torch.isfinite(zg).all()),
+                  f"{name} B={b}: captured z not finite or misshapen")
+            graph_rows(f"{name} B={b} captured vs eager", zg, ze, *floors)
+            entry = pipe.graphs.entries[(tuple(x.shape), x.dtype, x.device)]
+            reps = 5 if name.startswith(("f32", "int8")) else 10
+
+            def eager():
+                with torch.inference_mode():
+                    _serve(pipe.model, x)
+
+            ms = in_turns(eager, lambda: pipe.embed(x), reps)
+            print(f"graph {name} B={b}: launches {got}; eager {ms['eager'][0]:.3f}, "
+                  f"{ms['eager'][1]:.3f} ms; captured {ms['captured'][0]:.3f}, "
+                  f"{ms['captured'][1]:.3f} ms ({b / min(ms['captured']) * 1e3:.1f} fp/s); "
+                  f"pool {entry.pool_bytes / 2**20:.1f} MiB, "
+                  f"{'captured here' if new else 'captured earlier'} in "
+                  f"{entry.capture_s:.3f} s (warm-up included) [{card}]", flush=True)
+        if name == "fused bf16":
+            # wave -> fingerprint (bench.py's path): the log-mel eager, the
+            # model a replay, against the whole call eager
+            waves = clip_waves(B, cfg.fs, seed=2)
+            mcfg = LogMelConfig.from_config(cfg)
+
+            def eager_waves():
+                with torch.inference_mode():
+                    _serve(pipe.model, log_mel_spectrogram(waves, mcfg))
+
+            ms = in_turns(eager_waves, lambda: pipe.fingerprint_waves(waves), 10)
+            print(f"graph fingerprint_waves fused bf16 B={B}: eager {ms['eager'][0]:.3f}, "
+                  f"{ms['eager'][1]:.3f} ms; captured {ms['captured'][0]:.3f}, "
+                  f"{ms['captured'][1]:.3f} ms = {B / min(ms['captured']) * 1e3:.1f} fp/s "
+                  f"(eager {B / min(ms['eager']) * 1e3:.1f}) [{card}]", flush=True)
+            graph_track_and_build(pipe, zero_counts, counts, card)
+        print(f"graph {name}: {len(pipe.graphs.entries)} graphs, pools "
+              f"{pipe.graphs.pool_bytes / 2**20:.1f} MiB [{card}]", flush=True)
+        del pipe, spec
+        torch.cuda.empty_cache()
+
+
+def graph_track_and_build(pipe, zero_counts, counts, card: str) -> None:
+    """Phase 15b: a GRAPH_TRACK_S track through fingerprint_track (full
+    batches, replayed) against the parent's eager embedding of its
+    segments (batch_size batches, the last one ragged); then
+    create_dummy_db over GRAPH_DB_TRACKS tracks with graphs and eagerly
+    (the same full batches), in turns: rows, launches and fp/s."""
+    from grafp_tpu_torch.fp.builder import _serve, create_dummy_db
+    from grafp_tpu_torch.retrieval.memmap_io import load_memmap_data
+
+    wave = music_like_tracks(1, GRAPH_TRACK_S, GRAPH_TRACK_S, pipe.fs, seed=52)[0]
+    zero_counts()
+    zt = pipe.fingerprint_track(wave)
+    torch.cuda.synchronize()
+    got = counts()
+    segs = torch.as_tensor(pipe.segments_for(wave), device="cuda")
+    bs = pipe.batch_size
+    zero_counts()
+    with torch.inference_mode():
+        want = torch.cat([_serve(pipe.model, segs[i:i + bs])
+                          for i in range(0, len(segs), bs)]).cpu().numpy()
+    torch.cuda.synchronize()
+    check(got == counts(), f"track: launches {got}, the parent's eager path {counts()}")
+    check(zt.shape == want.shape == (len(segs), pipe.d), f"track fingerprints {zt.shape}")
+    full = len(segs) // bs * bs
+    print(f"graph track {GRAPH_TRACK_S} s: {len(segs)} rows in {-(-len(segs) // bs)} "
+          f"batches of {bs}; launches {got}; rows of the full batches "
+          f"{'equal' if np.array_equal(zt[:full], want[:full]) else 'NOT equal'} bit for "
+          f"bit", flush=True)
+    graph_rows(f"graph track {GRAPH_TRACK_S} s (padded) vs the parent's eager path "
+               "(ragged last batch)", torch.as_tensor(zt), torch.as_tensor(want),
+               COS_MIN_FLOOR, COS_MEAN_FLOOR)
+
+    tracks = music_like_tracks(GRAPH_DB_TRACKS, 20, 40, pipe.fs, seed=53)
+    graphs = pipe.graphs
+    rows, secs, launches = {}, {"eager": [], "captured": []}, {}
+    with tempfile.TemporaryDirectory() as work:
+        for turn in ("eager", "captured", "captured", "eager"):
+            pipe.graphs = None if turn == "eager" else graphs
+            zero_counts()
+            t0 = time.perf_counter()
+            n, _ = create_dummy_db(tracks, pipe, os.path.join(work, turn), verbose=False)
+            torch.cuda.synchronize()
+            secs[turn].append(time.perf_counter() - t0)
+            launches[turn] = counts()
+            rows[turn] = load_memmap_data(os.path.join(work, turn), "dummy_db",
+                                          display=False)[0][:n].copy()
+    pipe.graphs = graphs
+    check(launches["eager"] == launches["captured"],
+          f"DB build launches: eager {launches['eager']}, captured {launches['captured']}")
+    n = len(rows["eager"])
+    print(f"graph DB build: create_dummy_db over {GRAPH_DB_TRACKS} tracks of 20-40 s "
+          f"(pack {pipe.build_pack}) -> {n} rows; launches {launches['captured']}; eager "
+          f"{n / secs['eager'][0]:.1f}, {n / secs['eager'][1]:.1f} fp/s; captured "
+          f"{n / secs['captured'][0]:.1f}, {n / secs['captured'][1]:.1f} fp/s [{card}]",
+          flush=True)
+    graph_rows("graph DB build captured vs eager", torch.as_tensor(rows["captured"]),
+               torch.as_tensor(rows["eager"]), COS_MIN_FLOOR, COS_MEAN_FLOOR)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2426,7 +2613,8 @@ def main() -> int:
     before = mrconv_concat.launches
     with plain_versions(), torch.no_grad():
         _, z32p = model32(spec)
-        z32f = pipe32.fingerprint_waves(waves)
+        # the folded model itself: pipe32 replays a graph of the kernels
+        _, z32f = pipe32.model(spec)
     check(mrconv_concat.launches == before, "the plain path launched the kernel")
     hold_rows("bf16 kernel path (folded) vs f32 plain unfolded", z16, z32p,
               COS_MIN_FLOOR, COS_MEAN_FLOOR)
@@ -2806,6 +2994,11 @@ def main() -> int:
         for name in wrappers:
             launches[name][path] = got[name]
     print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+    # 15. the captured serving forward against the eager one
+    print(f"phase 15 at {time.perf_counter() - t_all:.1f} s", flush=True)
+    t15 = time.perf_counter()
+    graph_phase(serve_state, zero_counts, counts, card)
+    print(f"phase 15 took {time.perf_counter() - t15:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     sources = {"mrconv_concat": ("mrconv_concat.cu", "grafp_tpu/ops/pallas_knn.py:376"),

@@ -81,6 +81,9 @@ def validate(epoch, query_loader, dummy_loader, banks, model, cfg,
 
     if every <= 0 or not (epoch == 1 or epoch % every == 0):
         return None
+    # a new pipeline, and on the card new graph captures, each validation:
+    # the pipeline serves a folded copy of the weights as they are now, and
+    # its graphs hold that copy's addresses
     pipeline = FingerprintPipeline(model, cfg, device=device)
     create_dummy_db(dummy_loader, pipeline, output_root_dir, verbose=False)
     create_fp_db(query_loader, pipeline, banks, output_root_dir, verbose=False)

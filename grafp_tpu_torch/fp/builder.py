@@ -13,6 +13,14 @@ samples, zero-filled up to the next multiple of ``bucket_s`` seconds, and
 only the reference-defined segments are kept, so every fingerprint equals
 an unbucketed computation.
 
+Every model call runs on one of a few static shapes, as the JAX pipeline's
+jitted ``_embed`` does: the builders embed only full ``batch_size``
+batches, the last one zero-padded and its extra rows dropped
+(``grafp_tpu/fp/builder.py:113-150``). On the card the model runs from
+one captured CUDA graph per input shape (``fp/graphs.py``), captured at
+the first call of the shape after the lazy calibration; a capture that
+fails raises. On the CPU, the caller's explicit choice, it runs eagerly.
+
 The builders pack up to ``build_pack`` consecutive tracks of one bucket
 length into one log-mel call and one run of full ``batch_size`` embed
 batches, and stream the fingerprints, strictly in track order, into the
@@ -25,6 +33,7 @@ explicitly (``track_corruption_draws``).
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
@@ -41,6 +50,7 @@ from grafp_tpu_torch.dsp.augment import (
 )
 from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram
 from grafp_tpu_torch.dsp.segment import num_segments, unfold_segments
+from grafp_tpu_torch.fp.graphs import CapturedForward
 from grafp_tpu_torch.models.fold_bn import fold_batch_norms
 from grafp_tpu_torch.models.simclr import calibrate_act_scales
 from grafp_tpu_torch.retrieval.memmap_io import MemmapWriter
@@ -50,6 +60,12 @@ from grafp_tpu_torch.retrieval.memmap_io import MemmapWriter
 # pack 8 than at pack 1 (a track's last, partial batch is shared;
 # chip_smoke.py).
 DEFAULT_BUILD_PACK = 8
+
+
+def _serve(model, x: torch.Tensor) -> torch.Tensor:
+    """The serving forward: (B, n_mels, n_frames) -> (B, d) f32."""
+    _, z = model(x)
+    return z.to(torch.float32)
 
 
 class FingerprintPipeline:
@@ -71,6 +87,11 @@ class FingerprintPipeline:
                  act_scales: Optional[Dict[str, torch.Tensor]] = None):
         self.device = resolve_device(device)
         self.model = fold_batch_norms(model.to(self.device))
+        # the card replays one graph per input shape (fp/graphs.py); it
+        # holds the folded model, not the pipeline, so dropping the
+        # pipeline frees the graphs' pools
+        self.graphs = (CapturedForward(functools.partial(_serve, self.model))
+                       if self.device.type == "cuda" else None)
         if act_scales:
             self._set_scales(act_scales)
         amax = [b for n, b in self.model.named_buffers() if n.endswith("amax")]
@@ -122,15 +143,21 @@ class FingerprintPipeline:
 
     @torch.inference_mode()
     def embed(self, spec) -> torch.Tensor:
-        """(B, n_mels, n_frames) log-mel -> (B, d) f32 fingerprints."""
+        """(B, n_mels, n_frames) log-mel -> (B, d) f32 fingerprints; on the
+        card a replay of B's graph, captured at B's first call after the
+        lazy calibration, so that it captures the scales."""
         self._ensure_calibrated(spec)
-        _, z = self.model(self._tensor(spec))
-        return z.to(torch.float32)
+        x = self._tensor(spec)
+        return _serve(self.model, x) if self.graphs is None else self.graphs(x)
 
     def _embed_batches(self, segs: torch.Tensor) -> torch.Tensor:
-        """(S, n_mels, n_frames) -> (S, d), in batches of batch_size."""
-        return torch.cat([self.embed(segs[i:i + self.batch_size])
-                          for i in range(0, segs.shape[0], self.batch_size)])
+        """(S, n_mels, n_frames) -> (S, d) in full batch_size batches: the
+        last zero-padded and its extra rows dropped, as the JAX package's
+        ``_embed_track(s)`` do, so every model call has one shape."""
+        s, b = segs.shape[0], self.batch_size
+        segs = torch.nn.functional.pad(segs, (0, 0, 0, 0, 0, (-s) % b))
+        return torch.cat([self.embed(segs[i:i + b])
+                          for i in range(0, segs.shape[0], b)])[:s]
 
     @torch.inference_mode()
     def fingerprint_waves(self, waves) -> torch.Tensor:
@@ -174,7 +201,7 @@ class FingerprintPipeline:
                       kpack: int = 1) -> List[np.ndarray]:
         """(K, L) padded tracks of one bucket -> K (S_k, d) fingerprint
         arrays: one log-mel call, the true segments of all K embedded in
-        full batches, one copy back.
+        full batches (``_embed_batches``), one copy back.
 
         Under dynamic int8 the batches are the JAX package's
         (``grafp_tpu/fp/builder.py:113-150``), since a row depends on its
@@ -192,8 +219,6 @@ class FingerprintPipeline:
             mel = torch.cat([mel, mel[-1:].expand(kpack - k, -1, -1)])
         segs = torch.cat([unfold_segments(m, self.n_frames, self.step) for m in mel])
         s_b = segs.shape[0] // mel.shape[0]
-        pad = (-segs.shape[0]) % self.batch_size
-        segs = torch.nn.functional.pad(segs, (0, 0, 0, 0, 0, pad))
         z = self._embed_batches(segs)[:k * s_b].reshape(k, s_b, -1).cpu().numpy()
         return [z[t, :s] for t, s in enumerate(s_true)]
 

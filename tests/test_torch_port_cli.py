@@ -56,6 +56,19 @@ from tests.torch_port_util import (  # noqa: E402
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FS = 1000
+
+
+@pytest.fixture(scope="module", autouse=True)
+def port_embeds_in_batches_of_32():
+    """The port's FingerprintPipeline embeds in batches of 32 here, not
+    256, as the JAX CLIs of ``baseline_jax`` do: its builders embed only
+    full batches (each group's last one zero-padded), a row does not depend
+    on its batch (eval mode), and at 256 the tiny corpus's 22-row tracks
+    would spend most of the time on padding rows."""
+    defaults = FingerprintPipeline.__init__.__defaults__
+    FingerprintPipeline.__init__.__defaults__ = (32,) + defaults[1:]
+    yield
+    FingerprintPipeline.__init__.__defaults__ = defaults
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

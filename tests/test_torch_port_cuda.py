@@ -752,3 +752,105 @@ def test_profiling_timers_on_the_card(card):
     loop = IterTimer(lambda a: a @ a, x).run(20) / 20
     for got in (fit["per_iter_s"], loop):
         assert abs(got - ref) <= 0.25 * ref, (got, ref)
+
+
+# --- the captured serving forward (grafp_tpu_torch/fp/graphs.py) -------------
+
+def _serving_pipeline(card, **cfg_kw):
+    """A bf16 pipeline of size t at full width ('auto' fuses on the card)
+    on seeded weights made to behave like trained ones, and the model
+    inputs of 128 seeded clips; ``cfg_kw`` (serve_quant) goes to the served
+    model, which takes the calibrated weights."""
+    from grafp_tpu_torch.core import Config
+    from grafp_tpu_torch.dsp.melspec import LogMelConfig, log_mel_spectrogram
+    from grafp_tpu_torch.fp import FingerprintPipeline
+    from grafp_tpu_torch.models import build_model
+
+    cfg = Config(compute_dtype="bfloat16")
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0), device=card)
+    g = torch.Generator().manual_seed(1)
+    mcfg = LogMelConfig.from_config(cfg)
+    _util().calibrate(model, log_mel_spectrogram(
+        torch.randn(64, cfg.fs, generator=g).to(card), mcfg))
+    spec = log_mel_spectrogram(torch.randn(128, cfg.fs, generator=g).to(card), mcfg)
+    if cfg_kw:
+        cfg = Config(compute_dtype="bfloat16", **cfg_kw)
+        served = build_model(cfg, device=card)
+        served.load_state_dict(model.state_dict())
+        model = served
+    return FingerprintPipeline(model, cfg), spec
+
+
+def test_captured_forward_equals_the_eager_forward(card):
+    """At B = 128 the replay gives the eager forward's rows bit for bit (the
+    same kernels in the same order), at its first call and after; then
+    ragged tracks (37.3 and 33.1 s packed in one 40 s bucket, 12.5 s alone)
+    through fingerprint_tracks equal the same pipeline run eagerly, with
+    one more graph for the whole build (batch_size)."""
+    from grafp_tpu_torch.fp.builder import _serve
+
+    pipe, spec = _serving_pipeline(card)
+    with torch.inference_mode():
+        want = _serve(pipe.model, spec)
+    for _ in range(2):
+        assert torch.equal(pipe.embed(spec), want)
+    assert [k[:2] for k in pipe.graphs.entries] == [((128, 64, 32), torch.float32)]
+    rs = np.random.RandomState(2)
+    waves = [(0.1 * rs.randn(int(s * pipe.fs))).astype(np.float32) for s in (37.3, 33.1, 12.5)]
+    got = pipe.fingerprint_tracks(waves, pack=3)
+    graphs, pipe.graphs = pipe.graphs, None         # the same pipeline, eagerly
+    want = pipe.fingerprint_tracks(waves, pack=3)
+    assert [len(z) for z in got] == [len(pipe.segments_for(w)) for w in waves]
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert [k[:2] for k in graphs.entries][1:] == [((pipe.batch_size, 64, 32), torch.float32)]
+
+
+def test_a_replay_reads_the_scales_set_after_its_capture(card):
+    """int8_static: the first call calibrates lazily, then captures;
+    _set_scales writes the activation maxima in place, so a replay of that
+    graph quantises with the new scales, as the eager forward does."""
+    from grafp_tpu_torch.fp.builder import _serve
+
+    pipe, spec = _serving_pipeline(card, serve_quant="int8_static")
+    assert pipe._needs_calibration
+    first = pipe.embed(spec)
+    assert not pipe._needs_calibration
+    pipe._set_scales({n: 2.0 * b for n, b in pipe.model.named_buffers()
+                      if n.endswith("amax")})
+    second = pipe.embed(spec)
+    with torch.inference_mode():
+        want = _serve(pipe.model, spec)
+    assert len(pipe.graphs.entries) == 1
+    assert torch.equal(second, want) and not torch.equal(first, second)
+
+
+def test_replays_advance_the_launch_counters(card):
+    """The fused bf16 forward launches #5 in all 12 blocks; each replay
+    adds those 12, and the warm-up and capture add nothing."""
+    pipe, spec = _serving_pipeline(card)
+    counts = lambda: (grapher_block.launches, mrconv_concat.launches)  # noqa: E731
+    before = counts()
+    for i in range(3):
+        pipe.embed(spec)
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 12 * (i + 1), before[1])
+    (entry,) = pipe.graphs.entries.values()
+    assert pipe.graphs.pool_bytes > 0 and entry.capture_s > 0
+
+
+def test_a_failed_capture_raises(card):
+    """A forward that reads device data on the host cannot be captured:
+    the call raises and nothing runs it eagerly in its place; the card
+    works on afterwards. (Last in the file: a failed capture is the one
+    test here that leaves a stream capture behind it.)"""
+    from grafp_tpu_torch.fp.graphs import CapturedForward
+
+    def host_read(x):
+        return x * float(x.sum())
+
+    fwd = CapturedForward(host_read)
+    with pytest.raises(RuntimeError):
+        fwd(torch.ones(4, 4, device=card))
+    assert fwd.entries == {}
+    torch.cuda.synchronize()
+    assert float((torch.ones(4, device=card) * 2).sum()) == 8.0

@@ -200,6 +200,41 @@ def test_packing_changes_no_row(pipes, pack):
         np.testing.assert_allclose(y, tp.corrupt_track(w, tbanks, d), rtol=0, atol=1e-5)
 
 
+def test_fingerprint_tracks_match_jax(pipes):
+    """Ragged tracks in packed groups, each group embedded in full batches
+    as the JAX package's _embed_tracks does: every row within the
+    builders' tolerance of the JAX pipeline's."""
+    jp, tp, _ = pipes
+    waves = _waves()
+    got = tp.fingerprint_tracks(waves, pack=PACK)
+    want = jp.fingerprint_tracks(waves, pack=PACK)
+    assert [len(z) for z in got] == [len(z) for z in want]
+    _assert_rows_close(np.concatenate(got), np.concatenate(want),
+                       f"fingerprint_tracks pack {PACK} port vs JAX")
+
+
+@pytest.mark.parametrize("pack", [1, PACK])
+def test_the_builders_call_the_model_with_full_batches_only(pipes, tmp_path, pack):
+    """A spy on the served model: fingerprint_tracks, create_dummy_db and
+    embed_stream give it only (batch_size, n_mels, n_frames) batches, the
+    JAX package's one static shape, however ragged the tracks."""
+    _, tp, _ = pipes
+    seen = []
+    spy = tp.model.register_forward_pre_hook(lambda m, args: seen.append(tuple(args[0].shape)))
+    try:
+        waves = _waves(11)
+        rows = [len(z) for z in tp.fingerprint_tracks(waves, pack=pack)]
+        tb.create_dummy_db(waves, tp, str(tmp_path), verbose=False, pack=pack)
+        blocks = [tp.segments_for(w) for w in waves[:3]]
+        w = tmm.MemmapWriter(str(tmp_path), "s", tp.d, capacity=100)
+        tp.embed_stream(iter(blocks), w)
+        w.close()
+    finally:
+        spy.remove()
+    assert any(r % tp.batch_size for r in rows) and seen        # ragged tails
+    assert set(seen) == {(tp.batch_size, TINY["n_mels"], TINY["n_frames"])}
+
+
 def test_create_fp_db_draws_from_its_seed(pipes, tmp_path):
     _, tp, (_, tbanks) = pipes
     waves = _waves(7)[:4]

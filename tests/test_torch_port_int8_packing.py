@@ -86,3 +86,19 @@ def test_int8_rows_depend_on_the_packing(pipes):
         cos = _cos(pipe.fingerprint_tracks(waves, pack=pack), one)
         print(f"int8 pack {pack} vs pack 1: min cos {cos.min():.5f}, mean {cos.mean():.5f}")
         assert cos.min() < FLOOR
+
+
+@pytest.mark.parametrize("pack,tracks", [(1, 2), (3, 7)])
+def test_int8_builds_call_the_model_with_full_batches_only(pipes, pack, tracks):
+    """A spy on the served model: under dynamic int8 too, every model call
+    is one full batch_size batch, the JAX package's static shape."""
+    pipe, _, waves = pipes
+    waves = waves[:tracks]
+    seen = []
+    spy = pipe.model.register_forward_pre_hook(
+        lambda m, args: seen.append(tuple(args[0].shape)))
+    try:
+        pipe.fingerprint_tracks(waves, pack=pack)
+    finally:
+        spy.remove()
+    assert set(seen) == {(pipe.batch_size, PIPE["n_mels"], PIPE["n_frames"])}

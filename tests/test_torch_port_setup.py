@@ -39,10 +39,17 @@ import json, sys
 with open(sys.argv[1], "a") as f:
     f.write(json.dumps(sys.argv[2:]) + "\\n")
 """
-# an interpreter that runs the port CLI's main on the CPU
+# an interpreter that runs the port CLI's main on the CPU, its
+# FingerprintPipeline embedding in batches of 32, not 256: the builders
+# embed only full batches (each group's last one zero-padded), a row does
+# not depend on its batch (eval mode), and at 256 the 2-row tracks below
+# would spend most of the time on padding rows
 ON_CPU = """
 import importlib, sys
+from grafp_tpu_torch.fp import FingerprintPipeline
 assert sys.argv[1] == "-m"
+defaults = FingerprintPipeline.__init__.__defaults__
+FingerprintPipeline.__init__.__defaults__ = (32,) + defaults[1:]
 importlib.import_module(sys.argv[2]).main(sys.argv[3:], device="cpu")
 """
 
