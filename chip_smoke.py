@@ -191,13 +191,39 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      segments in batches with a ragged last one (the parent's path); and
      create_dummy_db over 32 tracks of 20-40 s with the graphs and eagerly,
      in turns (rows, launches, fp/s).
+ 16. the protocol's scale: (a) scripts/fma_large_smoke.py's geometry through
+     the port's driver (scripts/torch_port_fma_large_smoke.py), its 31.1M x
+     128 memmaps (30.6M dummy, 500k db and query rows, 15.9 GB) written by
+     the driver in a background process from the script's start: eval_faiss
+     'ivfpq' (64 cells, nprobe 20, 1M training rows, 500 test ids, lengths 1
+     11 19) with rescore='auto' (which must hold the merged DB on the card)
+     and 'host' on the same index, with equal hit rates and top-10 ids and
+     no kernel launch; each stage's seconds, the host's peak RSS and the
+     card's peak memory; against an exact float64 search on the card over
+     the merged rows for the test ids' first query rows: the index's 20
+     candidates of each against a float64 recomputation from the raw rows
+     and the index's centroids and codebooks alone
+     (tests/torch_port_util.py:ivfpq_candidate_faults: each candidate in a
+     probed cell at its decoded distance, the exact top-1 among them
+     wherever its cell is probed and it is nearer than the 20th), each
+     pick at length 1 the best of its candidates, and where it is not the
+     exact top-1, that row not among them; then 'l2' over the
+     31.1M rows, whose picks must be the exact top-1 (outside SCORE_TIE)
+     and whose top-1 exact at length 1 lies within FMA_EXACT_POINTS of the
+     exact search's; (b) the port's e2e driver
+     (scripts/torch_port_e2e_synthetic_icassp.py) at the JAX script's
+     defaults (300 tracks of 15 s, 12 epochs at bsz 64, 40 query tracks,
+     bf16): the mean loss of the last epoch below the first's, 12 + 12
+     launches a step, 12 grapher_block launches an embed batch of the three
+     builds (SNR 10, 5, 0) and no other, every hit-rate table (the untrained
+     model's SNR-10 'l2' row too) finite and within [0, 100].
 
 The line before the last is the card (nvidia-smi), the one before it the
 kernels' JSON (launches by path: the DB build's under "db_build", the
 entry points' under "cli", phase 10's under "baselines", phase 11's under
 "serve_int8" and "serve_int8_static", phase 12's under "ramp_*", "serve_*"
 and "train_*", phase 13's under "train_ddp", phase 14's under "k9_*" and
-"n3200_*"); the last line is
+"n3200_*", phase 16's under "e2e_train" and "e2e_build"); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -208,6 +234,7 @@ import copy
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2453,11 +2480,249 @@ def graph_track_and_build(pipe, zero_counts, counts, card: str) -> None:
                torch.as_tensor(rows["eager"]), COS_MIN_FLOOR, COS_MEAN_FLOOR)
 
 
+# --- phase 16: the protocol's scale ----------------------------------------
+# 16a: scripts/fma_large_smoke.py's geometry, 30.6M dummy + 500k db and
+# query rows (31.1M x 128 f32, 15.9 GB of memmaps)
+FMA_DUMMY, FMA_QUERY = 30_600_000, 500_000
+# 'l2' top-1 exact at length 1 against an exact float64 search on the card
+# over the merged rows, for the same test ids: within this many points
+FMA_EXACT_POINTS = 0.5
+# two rows' float64 scores closer than this may rank either way in f32
+# (unit rows: the f32 distances lay within 6.25e-7 of float64, phase 8)
+SCORE_TIE = 2e-6
+EXACT_CHUNK = 1 << 22          # rows per upload of the float64 search
+
+
+def script_path(name: str) -> str:
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        f"{name}.py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def script(name: str):
+    """scripts/<name>.py of this checkout, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, script_path(name))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def start_fma_data(root: str):
+    """The port's fma_large driver writing its memmaps under ``root``
+    (--data-only, one numpy thread) while the earlier phases run: (the
+    process, its log's path)."""
+    log_path = os.path.join(root, "data.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, script_path("torch_port_fma_large_smoke"), "--data-only",
+             "--dummy", str(FMA_DUMMY), "--nq", str(FMA_QUERY), "--root", root],
+            stdout=log, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def fma_rows(path: str, name: str) -> np.ndarray:
+    shape = tuple(np.load(os.path.join(path, f"{name}_shape.npy")))
+    return np.memmap(os.path.join(path, f"{name}.mm"), np.float32, mode="r", shape=shape)
+
+
+def exact_search(path: str, q: np.ndarray):
+    """The exact float64 inner-product top-1 of query rows ``q`` on the card
+    over dummy_db ++ db (unit rows: the L2 order): (ids, scores)."""
+    qd = torch.as_tensor(q, device="cuda").double()
+    best = torch.full((len(q),), -float("inf"), dtype=torch.float64, device="cuda")
+    arg = torch.zeros(len(q), dtype=torch.int64, device="cuda")
+    offset = 0
+    for name in ("dummy_db", "db"):
+        mm = fma_rows(path, name)
+        for s in range(0, len(mm), EXACT_CHUNK):
+            x = torch.from_numpy(np.array(mm[s:s + EXACT_CHUNK])).to("cuda").double()
+            v, i = (qd @ x.T).max(1)
+            take = v > best
+            best = torch.where(take, v, best)
+            arg = torch.where(take, i + offset + s, arg)
+        offset += len(mm)
+    return arg.cpu().numpy(), best.cpu().numpy()
+
+
+def fma_phase(data, root: str, zero_counts, counts, card: str) -> None:
+    """Phase 16a (see the module docstring). Every check raises."""
+    from grafp_tpu_torch.retrieval.evaluate import ConcatRows, eval_faiss
+
+    proc, log_path = data
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    with open(log_path) as f:
+        for line in f.read().splitlines()[-3:]:
+            print(f"fma_large data: {line}")
+    print(f"fma_large data: waited {time.perf_counter() - t0:.1f} s for the writer")
+    check(rc == 0, f"the fma_large data writer exited with {rc}")
+    fma = script("torch_port_fma_large_smoke")
+    path = fma.data_dir(root, FMA_DUMMY, FMA_QUERY)
+    torch.cuda.empty_cache()
+    zero_counts()
+    out = fma.run(path, device="cuda")          # raises if the tiers differ
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"fma_large eval: launches {got}")
+    check(all(n == 0 for n in got.values()), "the evaluation path launched a kernel")
+    check(out["auto"]["rescore"] == "device" and out["host"]["rescore"] == "host",
+          "rescore='auto' did not hold the merged DB on the card")
+    hr = out["auto"]["hit_rates"]
+    check(hr.shape == (4, 3) and bool(np.isfinite(hr).all())
+          and bool(((hr >= 0) & (hr <= 100)).all())
+          and bool((hr[3] >= hr[2]).all() and (hr[2] >= hr[0]).all()),
+          f"fma_large hit rates {hr}")
+    for tier in ("auto", "host"):
+        r = out[tier]
+        print(f"fma_large {FMA_DUMMY + FMA_QUERY:,} rows, ivfpq, rescore={tier} "
+              f"({r['rescore']}): load {r['load_s']:.2f} s, train {r['train_s']:.2f} s, "
+              f"add {r['add_s']:.2f} s, search {r['search_s']:.2f} s (9,500 query rows, "
+              f"k=20), rescoring {r['rescore_s']:.2f} s, total {r['total_s']:.2f} s; "
+              f"peak RSS {r['peak_rss_gb']:.2f} GB, card peak {r['card_peak_gb']:.2f} GB "
+              f"(max_memory_allocated) [{card}]", flush=True)
+
+    # the exact float64 search over the merged rows for the test ids' first
+    # query rows (length 1), against which the searches are held
+    tids = np.load(os.path.join(path, "test_ids.npy"))
+    q = np.asarray(fma_rows(path, "query")[tids])
+    gt = tids + FMA_DUMMY
+    t0 = time.perf_counter()
+    exact, exact_s = exact_search(path, q)
+    merged = ConcatRows(fma_rows(path, "dummy_db"), fma_rows(path, "db"))
+
+    def score(ids):                         # float64 q . row, ids (n, m)
+        rows = merged.gather(ids.reshape(-1)).reshape(*ids.shape, -1)
+        return np.einsum("nmd,nd->nm", rows.astype(np.float64), q.astype(np.float64))
+
+    exact_hit = 100.0 * float((exact == gt).mean())
+    print(f"fma_large exact float64 search on the card: top-1 exact at length 1 "
+          f"{exact_hit:.2f} % ({len(tids)} test ids, {time.perf_counter() - t0:.1f} s)")
+    # ivfpq: the index's 20 candidates for each row against a float64
+    # recomputation from the raw rows and the index's centroids and
+    # codebooks alone: each in a probed cell at its decoded distance, and
+    # the exact top-1 among them wherever its cell is probed and its
+    # decoded distance beats the 20th candidate's
+    pick = out["auto"]["top_ids"][:, 0, 0]
+    index = out.pop("index")
+    t0 = time.perf_counter()
+    dist, cand = index.search(q, 20)
+    faults, held = shared().ivfpq_candidate_faults(
+        q, dist, cand, exact, merged.gather, index.centroids.cpu().numpy(),
+        index.pq.codebooks.cpu().numpy(), index.nprobe)
+    print(f"fma_large ivfpq candidates against the float64 recomputation: faults "
+          f"{faults}; the exact top-1 held to them for {held} of {len(tids)} test ids "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(not any(faults.values()) and held > 0,
+          f"the ivfpq search disagrees with its recomputation: {faults}, {held} held")
+    del out, index
+    torch.cuda.empty_cache()
+    # the eval's pick at length 1 is the best of those candidates (the
+    # rescoring), and wherever it is not the exact top-1, the exact top-1
+    # was not among them (the index's recall, not a fault)
+    s_pick = score(pick[:, None])[:, 0]
+    s_cand = np.where(cand >= 0, score(np.maximum(cand, 0)), -np.inf)
+    check(bool((pick[:, None] == cand).any(1).all())
+          and bool((s_pick >= s_cand.max(1) - SCORE_TIE).all()),
+          "an ivfpq pick at length 1 is not the best of its candidates")
+    miss = pick != exact
+    outside = ~(cand == exact[:, None]).any(1)
+    tie = np.abs(s_pick - exact_s) <= SCORE_TIE
+    print(f"fma_large ivfpq at length 1: top-1 exact {hr[0, 0]:.2f} %; the pick differs "
+          f"from the exact top-1 for {int(miss.sum())} of {len(tids)} test ids, whose "
+          f"exact top-1 lay outside the index's 20 candidates for "
+          f"{int((miss & outside).sum())} (near ties {int((miss & tie).sum())})",
+          flush=True)
+    check(bool((~miss | outside | tie).all()),
+          "the exact top-1 was among the index's candidates but not picked")
+
+    # 'l2' at full size (the JAX smoke runs only 'ivfpq'): exact search
+    torch.cuda.reset_peak_memory_stats()
+    stats, t0 = {}, time.perf_counter()
+    hr_l2 = eval_faiss(path, index_type="l2", test_ids="500", test_seq_len="1 11 19",
+                       k_probe=20, verbose=False, device="cuda", stats=stats)
+    secs = time.perf_counter() - t0
+    pick = stats.pop("top_ids")[:, 0, 0]
+    del stats["index"]
+    torch.cuda.empty_cache()
+    s_pick = score(pick[:, None])[:, 0]
+    differ = pick != exact
+    print(f"fma_large {FMA_DUMMY + FMA_QUERY:,} rows, l2, rescore=auto "
+          f"({stats['rescore']}): add {stats['add_s']:.2f} s, search {stats['search_s']:.2f} "
+          f"s, rescoring {stats['rescore_s']:.2f} s, total {secs:.2f} s; card peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; top-1 exact {hr_l2[0]}, "
+          f"top-3 {hr_l2[2]}; at length 1 the pick differs from the exact top-1 for "
+          f"{int(differ.sum())} test ids (near ties "
+          f"{int((differ & (np.abs(s_pick - exact_s) <= SCORE_TIE)).sum())}) [{card}]",
+          flush=True)
+    check(bool((~differ | (np.abs(s_pick - exact_s) <= SCORE_TIE)).all()),
+          "an 'l2' pick at length 1 is not the exact top-1")
+    check(abs(hr_l2[0, 0] - exact_hit) <= FMA_EXACT_POINTS,
+          f"'l2' top-1 exact at length 1 is {hr_l2[0, 0]}, the exact search's {exact_hit}")
+
+
+def e2e_phase(work: str, zero_counts, counts, card: str) -> dict:
+    """Phase 16b (see the module docstring): the port's e2e driver at the JAX
+    script's defaults; returns its launches by path. Every check raises."""
+    e2e = script("torch_port_e2e_synthetic_icassp")
+    zero_counts()
+    t0 = time.perf_counter()
+    out = e2e.run(os.path.join(work, "e2e"), device="cuda")
+    secs = time.perf_counter() - t0
+    n_graphers, steps, batches = sum(BLOCKS), out["steps"], out["embed_batches"]
+    got = {path: {**{name: 0 for name in counts()}, **out["launches"][path]}
+           for path in ("e2e_train", "e2e_build")}
+    rest = {name: n for name, n in counts().items()
+            if name not in out["launches"]["e2e_build"]}
+    print(f"e2e: {steps} steps, {batches} embed batches in the three builds; launches "
+          f"{got}, others {rest}")
+    check(all(n == 0 for n in rest.values()), "the e2e run launched an op-path kernel")
+    check(got["e2e_train"] == {**{name: 0 for name in counts()},
+                               "mrconv_concat": n_graphers * steps,
+                               "mrconv_concat_backward": n_graphers * steps},
+          f"expected {n_graphers} forward and backward launches per step")
+    check(got["e2e_build"] == {**{name: 0 for name in counts()},
+                               "grapher_block": n_graphers * batches},
+          f"expected {n_graphers} grapher_block launches per embed batch")
+    losses = out["epoch_loss"]
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"the e2e loss does not fall: {losses}")
+    tables = [out["baseline"]] + [hr for snr in out["hit_rates"].values()
+                                  for hr in snr.values()]
+    check(all(t.shape == (4, 5) and bool(np.isfinite(t).all())
+              and bool(((t >= 0) & (t <= 100)).all()) for t in tables),
+          "an e2e hit-rate table is misshapen or out of range")
+    fps = {snr: rows / s for snr, (s, rows) in out["build"].items()}
+    print(f"e2e at the JAX script's defaults: {secs:.1f} s; epoch losses "
+          f"{[round(x, 4) for x in losses]}; epoch seconds "
+          f"{[round(x, 2) for x in out['epoch_s']]}; DB builds "
+          + ", ".join(f"SNR {snr} {fp:.0f} fp/s" for snr, fp in fps.items())
+          + f" [{card}]", flush=True)
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # phase 16a's memmaps are written while phases 2-15 run
+    fma_root = tempfile.mkdtemp(prefix="fma_large_")
+    fma_data = start_fma_data(fma_root)
+    try:
+        return phases(fma_data, fma_root)
+    finally:
+        if fma_data[0].poll() is None:
+            fma_data[0].kill()
+            fma_data[0].wait()
+        shutil.rmtree(fma_root, ignore_errors=True)
+
+
+def phases(fma_data, fma_root: str) -> int:
     from grafp_tpu_torch.core import Config
     from grafp_tpu_torch.dsp.melspec import log_mel_spectrogram
     from grafp_tpu_torch.fp import FingerprintPipeline
@@ -2999,6 +3264,17 @@ def main() -> int:
     t15 = time.perf_counter()
     graph_phase(serve_state, zero_counts, counts, card)
     print(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+    # 16. the protocol's scale: the fma_large geometry, then the e2e driver
+    print(f"phase 16 at {time.perf_counter() - t_all:.1f} s", flush=True)
+    t16 = time.perf_counter()
+    fma_phase(fma_data, fma_root, zero_counts, counts, card)
+    print(f"phase 16a took {time.perf_counter() - t16:.1f} s")
+    t16b = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        for path, got in e2e_phase(work, zero_counts, counts, card).items():
+            for name in wrappers:
+                launches[name][path] = got[name]
+    print(f"phase 16b took {time.perf_counter() - t16b:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     sources = {"mrconv_concat": ("mrconv_concat.cu", "grafp_tpu/ops/pallas_knn.py:376"),

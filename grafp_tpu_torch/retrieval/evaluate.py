@@ -143,26 +143,34 @@ def evaluate_sequences(index, recon, query: np.ndarray, test_ids: np.ndarray,
                        gt_ids: np.ndarray, test_seq_len: Sequence[int],
                        k_probe: int = 20, verbose: bool = True,
                        rescore: str = "auto",
-                       device: Optional[Union[str, torch.device]] = None
+                       device: Optional[Union[str, torch.device]] = None,
+                       stats: Optional[dict] = None
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """(top1_exact, top1_near, top3_exact, top10_exact), each (n_test, n_sl)
     ints. ``rescore``: 'device' holds the merged DB on ``device`` (None =
     the CUDA card), 'host' gathers candidate windows from ``recon`` on the
     host (the same results), 'auto' takes 'device' up to RESCORE_BUDGET
-    bytes."""
+    bytes. A ``stats`` dict receives the tier taken ('rescore'), the
+    seconds of the search and of the rescoring ('search_s', 'rescore_s',
+    the card's copy of the merged DB included) and the top-10 ids
+    ('top_ids', (n_test, n_sl, 10), -999999 for an empty slot)."""
     n_test = len(test_ids)
     max_sl = int(max(test_seq_len))
     nbytes = getattr(recon, "nbytes", recon.shape[0] * recon.shape[1] * 4)
-    if rescore == "auto":
+    chosen = rescore == "auto"
+    if chosen:
         rescore = "device" if nbytes <= RESCORE_BUDGET else "host"
+    t_copy = time.time()
     if rescore == "device":
         dev = resolve_device(device)
         recon_dev = torch.as_tensor(
             np.asarray(recon.materialize() if isinstance(recon, ConcatRows) else recon,
                        np.float32), device=dev)
-    elif verbose:
+    elif verbose and chosen:
         print(f"[eval] rescoring on host ({nbytes / 2**30:.1f} GB merged DB > "
               f"budget {RESCORE_BUDGET / 2**30:.1f} GB)")
+
+    rescore_s = time.time() - t_copy
 
     # one batched segment search for all rows of all test sequences
     rows = np.minimum((test_ids[:, None] + np.arange(max_sl)[None, :]).reshape(-1),
@@ -170,8 +178,9 @@ def evaluate_sequences(index, recon, query: np.ndarray, test_ids: np.ndarray,
     t0 = time.time()
     _, hits = index.search(query[rows], k_probe)
     hits = hits.reshape(n_test, max_sl, k_probe)
+    search_s = time.time() - t0
     if verbose:
-        print(f"[eval] segment search: {time.time() - t0:.2f}s "
+        print(f"[eval] segment search: {search_s:.2f}s "
               f"({n_test * max_sl} rows, k={k_probe})")
 
     # offset compensation once at the longest length; misses stay invalid
@@ -183,6 +192,7 @@ def evaluate_sequences(index, recon, query: np.ndarray, test_ids: np.ndarray,
     top1_near = np.zeros((n_test, n_sl), int)
     top3_exact = np.zeros((n_test, n_sl), int)
     top10_exact = np.zeros((n_test, n_sl), int)
+    top10 = np.full((n_test, n_sl, 10), -999999, np.int64)
     for si, sl in enumerate(test_seq_len):
         sl = int(sl)
         cand_s, valid = _unique_candidates(comp[:, :sl, :].reshape(n_test, sl * k_probe))
@@ -199,12 +209,17 @@ def evaluate_sequences(index, recon, query: np.ndarray, test_ids: np.ndarray,
             else:
                 _, pred = _score_block_host(recon, qs, cand_s[b0:b1], valid[b0:b1], sl)
             gt = gt_ids[b0:b1]
+            top10[b0:b1, si] = pred
             top1_exact[b0:b1, si] = pred[:, 0] == gt
             top1_near[b0:b1, si] = np.abs(pred[:, 0] - gt) <= 1
             top3_exact[b0:b1, si] = (pred[:, :3] == gt[:, None]).any(axis=1)
             top10_exact[b0:b1, si] = (pred[:, :10] == gt[:, None]).any(axis=1)
+        rescore_s += time.time() - t0
         if verbose:
             print(f"[eval] seq_len {sl}: rescoring {time.time() - t0:.2f}s")
+    if stats is not None:
+        stats.update(rescore=rescore, search_s=search_s, rescore_s=rescore_s,
+                     top_ids=top10)
     return top1_exact, top1_near, top3_exact, top10_exact
 
 
@@ -233,7 +248,7 @@ def eval_faiss(emb_dir: str, emb_dummy_dir: Optional[str] = None,
                scan_topk: str = "exact", scan_recall: float = 0.99,
                rescore: str = "auto",
                device: Optional[Union[str, torch.device]] = None,
-               mesh=None) -> np.ndarray:
+               mesh=None, stats: Optional[dict] = None) -> np.ndarray:
     """The reference's eval.py:170-332 on the port's index family, on
     ``device`` (None = the CUDA card): loads the query, db and dummy_db
     memmaps, builds and trains the index (any type of ``get_index``) on
@@ -241,7 +256,12 @@ def eval_faiss(emb_dir: str, emb_dummy_dir: Optional[str] = None,
     'auto' | 'device' | 'host') and returns the (4, n_sl) hit rates in
     percent, saved beside raw_score.npy and test_ids.npy. ``scan_topk``,
     ``scan_recall`` and ``mesh`` (a ``DeviceMesh`` whose 'db' axis shards
-    the index's rows; None = one device) go to ``get_index``."""
+    the index's rows; None = one device) go to ``get_index``.
+
+    ``stats``: a dict that receives the index ('index'), the seconds of
+    each stage ('load_s', 'train_s', 'add_s', and ``evaluate_sequences``'s
+    'search_s' and 'rescore_s'), the rescoring tier and the top-10 ids of
+    every test id and length ('rescore', 'top_ids')."""
     if rescore not in ("auto", "device", "host"):
         raise ValueError(f"rescore must be 'auto', 'device' or 'host', got {rescore!r}")
     if isinstance(test_seq_len, str):
@@ -250,18 +270,23 @@ def eval_faiss(emb_dir: str, emb_dummy_dir: Optional[str] = None,
         test_seq_len = np.asarray(test_seq_len)
     device = resolve_device(device)
 
+    t0 = time.time()
     query, _ = load_memmap_data(emb_dir, "query", display=verbose)
     db, _ = load_memmap_data(emb_dir, "db", display=verbose)
     dummy_db, dummy_db_shape = load_memmap_data(emb_dummy_dir or emb_dir, "dummy_db",
                                                 display=verbose)
+    secs = {"load_s": time.time() - t0}
+    t0 = time.time()
     index = get_index(index_type, dummy_db, dummy_db.shape, max_train,
                       n_centroids=n_centroids, scan_topk=scan_topk,
                       scan_recall=scan_recall, device=device, mesh=mesh)
+    secs["train_s"] = time.time() - t0
     t0 = time.time()
     index.add(dummy_db)
     index.add(db)
+    secs["add_s"] = time.time() - t0
     if verbose:
-        print(f"Added total {index.ntotal} items to DB. {time.time() - t0:>4.2f} sec.")
+        print(f"Added total {index.ntotal} items to DB. {secs['add_s']:>4.2f} sec.")
 
     # the reference rescores with the original fingerprints, not the PQ
     # reconstructions (its fake_recon_index holds raw rows)
@@ -272,7 +297,7 @@ def eval_faiss(emb_dir: str, emb_dummy_dir: Optional[str] = None,
         print(f"test_id: {test_ids},  n_test: {len(tids)}")
     t1e, t1n, t3e, t10e = evaluate_sequences(
         index, recon, np.asarray(query), tids, gt_ids, test_seq_len,
-        k_probe=k_probe, verbose=verbose, rescore=rescore, device=device)
+        k_probe=k_probe, verbose=verbose, rescore=rescore, device=device, stats=stats)
     hit_rates = np.stack([100.0 * t1e.mean(axis=0), 100.0 * t1n.mean(axis=0),
                           100.0 * t3e.mean(axis=0), 100.0 * t10e.mean(axis=0)])
 
@@ -283,4 +308,6 @@ def eval_faiss(emb_dir: str, emb_dummy_dir: Optional[str] = None,
     np.save(f"{emb_dir}/test_ids.npy", tids)
     if verbose:
         print(f"Saved test_ids, hit-rates and raw score to {result_dir}.")
+    if stats is not None:
+        stats.update(secs, index=index)
     return hit_rates

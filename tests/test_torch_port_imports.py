@@ -1,6 +1,8 @@
-"""The port stands alone: no module of grafp_tpu_torch, and not
-chip_smoke.py, imports jax, flax or the JAX package grafp_tpu (checked on
-the syntax tree, so prose that names them does not count)."""
+"""The port stands alone: no module of grafp_tpu_torch, not chip_smoke.py
+and not the port's protocol drivers (scripts/torch_port_fma_large_smoke.py,
+scripts/torch_port_e2e_synthetic_icassp.py) imports jax, flax or the JAX
+package grafp_tpu (checked on the syntax tree, so prose that names them
+does not count)."""
 
 import ast
 import subprocess
@@ -11,7 +13,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "grafp_tpu")
-SOURCES = sorted((ROOT / "grafp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port's drivers that run on the card's machine, which has no JAX
+DRIVERS = [ROOT / "scripts" / "torch_port_fma_large_smoke.py",
+           ROOT / "scripts" / "torch_port_e2e_synthetic_icassp.py"]
+SOURCES = (sorted((ROOT / "grafp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + DRIVERS)
 
 
 def _imported(tree: ast.AST):

@@ -32,6 +32,13 @@ Tolerances:
   k-NN selection carries such steps on. The dynamic scale is one max over
   the whole batch, so a fingerprint depends on its batch: both sides get
   equal batches.
+- the lazy pipelines of a track (each package's own maxima and own
+  BatchNorm fold): each row nearest its own JAX row above TRACK_FLOOR,
+  derived beside it from measured spreads; the exact links around it
+  (lazy maxima = an explicit calibration of the first batch; the
+  pipeline's rows = those of a pipeline given it) are held bit for bit,
+  and the unfolded models on the track's segments, under the same
+  maxima, above 0.999 (``_hold_lazy_track``).
 The weights are calibrated as chip_smoke.py's are, so that unrelated
 inputs give distinct fingerprints."""
 
@@ -68,6 +75,14 @@ LAYER_RTOL = 1e-6
 SCALE_RTOL = 1e-6
 MODEL_SCALE_RTOL = 1e-5
 Z_FLOOR = {"float32": 0.999, "bfloat16": 0.99}
+# the lazy pipelines' rows, port against JAX, each under its own lazy
+# maxima and its own BatchNorm fold: maxima 1e-6 relative apart (measured
+# 1.02e-6 to 1.32e-6) move this model's int8_static rows to min cos
+# 0.9979 (the port's own rows, every maximum times 1 +- 1e-6, four sign
+# draws on three inputs: 0.9979-0.9993), and the JAX package's folded
+# rows lie at min cos 0.99863 from its own unfolded ones (same maxima,
+# the track's segments); 1 - (1 - 0.9979) - (1 - 0.99863) = 0.99653
+TRACK_FLOOR = 0.9965
 TINY = dict(n_mels=16, n_frames=16)                  # N = 128 nodes, size t
 # the pipeline's geometry in the JAX package's own lazy-calibration test
 PIPE = dict(fs=1000, win_len=256, hop_len=128, n_fft=256, n_mels=16, n_frames=8)
@@ -326,12 +341,15 @@ def test_weight_bridge_carries_act_scales(tiny_tree):
                                                        device="cpu"), scales)
 
 
-def test_int8_static_lazy_calibration_in_pipeline(tmp_path):
+@pytest.fixture(scope="module")
+def lazy_track():
     """JAX's test of the same name, on the port: a static pipeline with no
-    scales calibrates on the first track's segments (<= batch_size), its
-    maxima equal an explicit ``calibrate_act_scales`` over the same batch
-    and the JAX pipeline's lazy ones; a second pipeline fed through
-    embed_stream calibrates too; a pipeline given the scales does not."""
+    scales calibrates on the first track's segments (<= batch_size). What
+    the checks of ``_hold_lazy_track`` read: the port pipeline's rows and
+    lazy maxima, an explicit ``calibrate_act_scales`` over the same batch
+    and the rows of a pipeline given it, the JAX pipeline's lazy maxima
+    and rows, and the unfolded int8_static model of each package on the
+    track's segments under JAX's lazy maxima."""
     jcfg = JConfig(**PIPE, serve_quant="int8_static")
     cfg = Config(**PIPE, serve_quant="int8_static")
     shapes = jax.eval_shape(lambda: j_build_model(JConfig(**PIPE)).init(
@@ -346,20 +364,110 @@ def test_int8_static_lazy_calibration_in_pipeline(tmp_path):
     assert pipe._needs_calibration
     z = pipe.fingerprint_track(wave)
     assert z.shape == jz.shape and np.isfinite(z).all() and not pipe._needs_calibration
-    lazy = {k: float(v) for k, v in pipe.model.state_dict().items() if k.endswith("amax")}
-    segs = pipe.segments_for(wave)[:pipe.batch_size]
-    ref = calibrate_act_scales(Config(**PIPE), model, [segs])
-    jlazy = state_dict_from_jax(params, stats, model,
-                                jpipe.extra_variables["act_scales"])
-    assert len(lazy) == len(ref) == 62
-    for key, val in lazy.items():
-        assert val == float(ref[key]), key
-        assert abs(val - float(jlazy[key])) <= MODEL_SCALE_RTOL * val, key
-    hold_rows("lazy int8_static track: port vs JAX", z, jz, Z_FLOOR["float32"])
+    segs = pipe.segments_for(wave)
+    first = segs[:pipe.batch_size]
+    ref = calibrate_act_scales(Config(**PIPE), model, [first])
+    j_scales = jpipe.extra_variables["act_scales"]
+    _, jz_unfolded = j_build_model(jcfg).apply(
+        {"params": params, "batch_stats": stats, "act_scales": j_scales},
+        jnp.asarray(segs), False)
+    with torch.no_grad():
+        _, z_unfolded = _port(cfg, params, stats, j_scales)(to_torch(segs))
+    return dict(
+        cfg=cfg, model=model, wave=wave, segs=segs, z=z,
+        lazy={k: float(v) for k, v in pipe.model.state_dict().items()
+              if k.endswith("amax")},
+        ref=ref,
+        z_ref=FingerprintPipeline(model, cfg, device="cpu",
+                                  act_scales=ref).fingerprint_track(wave),
+        jlazy=state_dict_from_jax(params, stats, model, j_scales), jz=jz,
+        z_unfolded=z_unfolded.numpy(), jz_unfolded=np.asarray(jz_unfolded, np.float32))
+
+
+def _hold_lazy_track(t):
+    """The lazy calibration's checks (C8 in ROADMAP.md):
+    - the lazy maxima equal an explicit ``calibrate_act_scales`` over the
+      first batch exactly, and JAX's lazy ones within MODEL_SCALE_RTOL;
+    - the pipeline's rows equal, bit for bit and in order, those of a
+      pipeline given that explicit calibration;
+    - the unfolded int8_static model of each package on the track's
+      segments, both under JAX's lazy maxima: each row nearest its own
+      JAX row above Z_FLOOR (as ``test_int8_model_matches_jax``; measured
+      min cos 0.99956);
+    - the pipelines' rows, port against JAX: each nearest its own row
+      above TRACK_FLOOR.
+    Raises AssertionError."""
+    assert len(t["lazy"]) == len(t["ref"]) == 62
+    for key, val in t["lazy"].items():
+        assert val == float(t["ref"][key]), key
+        assert abs(val - float(t["jlazy"][key])) <= MODEL_SCALE_RTOL * val, key
+    np.testing.assert_array_equal(t["z"], t["z_ref"])
+    hold_rows("int8_static on the track's segments, unfolded, JAX's lazy maxima: "
+              "port vs JAX", t["z_unfolded"], t["jz_unfolded"], Z_FLOOR["float32"])
+    hold_rows("lazy int8_static track: port vs JAX", t["z"], t["jz"], TRACK_FLOOR)
+
+
+def test_int8_static_lazy_calibration_in_pipeline(lazy_track, tmp_path):
+    """The port's lazy calibration against JAX's (``_hold_lazy_track``);
+    a second pipeline fed through embed_stream calibrates too; a pipeline
+    given the scales does not; the caller's model keeps its zeros."""
+    _hold_lazy_track(lazy_track)
+    cfg, model, segs = lazy_track["cfg"], lazy_track["model"], lazy_track["segs"]
     assert float(model.encoder.stem.amax) == 0.0        # the caller's model untouched
 
     pipe2 = FingerprintPipeline(model, cfg, batch_size=4, device="cpu")
     writer = MemmapWriter(str(tmp_path), "db", pipe2.d, capacity=64)
     assert pipe2.embed_stream([segs[:6]], writer) == 6 and not pipe2._needs_calibration
     writer.close()
-    assert not FingerprintPipeline(model, cfg, device="cpu", act_scales=ref)._needs_calibration
+    assert not FingerprintPipeline(model, cfg, device="cpu",
+                                   act_scales=lazy_track["ref"])._needs_calibration
+
+
+def _served_with(t, scales):
+    """``t`` with the lazy maxima replaced by ``scales`` and the rows by
+    what a pipeline given them serves."""
+    pipe = FingerprintPipeline(t["model"], t["cfg"], device="cpu", act_scales=scales)
+    return dict(t, lazy={k: float(v) for k, v in scales.items()},
+                z=pipe.fingerprint_track(t["wave"]))
+
+
+@pytest.mark.parametrize("fault", ["rows_out_of_order", "one_scale_off_1e-4",
+                                   "calibrated_on_another_batch"])
+def test_lazy_track_checks_fail_on_a_fault(lazy_track, fault):
+    """Each fault the lazy path could have fails ``_hold_lazy_track``: its
+    rows served out of order, one maximum 1e-4 relative off (ten times
+    MODEL_SCALE_RTOL), or a calibration over segments other than the
+    first batch's."""
+    t = lazy_track
+    if fault == "rows_out_of_order":
+        bad = dict(t, z=np.roll(t["z"], 1, axis=0))
+    elif fault == "one_scale_off_1e-4":
+        key = "encoder.block4_grapher.gconv.conv.amax"
+        bad = _served_with(t, {**t["ref"], key: t["ref"][key] * (1 + 1e-4)})
+    else:
+        bad = _served_with(t, calibrate_act_scales(Config(**PIPE), t["model"],
+                                                   [t["segs"][5:]]))
+    with pytest.raises(AssertionError):
+        _hold_lazy_track(bad)
+
+
+@pytest.mark.parametrize("name", ["encoder.block0_grapher.fc2.bias", "peak.conv.weight"])
+def test_track_floor_fails_a_fault_of_the_served_model(lazy_track, name):
+    """TRACK_FLOOR alone fails rows served by a pipeline given the first
+    batch's maxima whose model is off by 1e-3 in one place: the folded
+    bias of block 0's Grapher fc2 (+1e-3; min cos to JAX measured
+    0.99533) or the peak convolution's weights (times 1 + 1e-3; 0.99497),
+    against 0.99916 without the fault. (The same fault deeper in the
+    encoder moves the rows less: 0.9975-0.9993.)"""
+    t = lazy_track
+    pipe = FingerprintPipeline(t["model"], t["cfg"], device="cpu", act_scales=t["ref"])
+    with torch.no_grad():
+        p = dict(pipe.model.named_parameters())[name]
+        if name.endswith("bias"):
+            p.add_(1e-3)
+        else:
+            p.mul_(1 + 1e-3)
+    z = pipe.fingerprint_track(t["wave"])
+    with pytest.raises(AssertionError, match="below cos"):
+        hold_rows(f"lazy int8_static track, {name} off by 1e-3: port vs JAX", z, t["jz"],
+                  TRACK_FLOOR)

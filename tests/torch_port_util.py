@@ -272,6 +272,94 @@ def hold_rows(what: str, got, ref, floor=None, mean_floor=None, device=None):
     return least, largest
 
 
+# an 'ivfpq' search scans its bf16 decode cache in f32: its distances lie
+# within this of the float64 ones (the f32 rounding bound of |q|^2 +
+# |r|^2 - 2 q.r for unit 128-d rows is 3e-5)
+IVFPQ_EPS = 1e-4
+F32_U = 2.0 ** -24
+
+
+def _assigned(x: np.ndarray, c: np.ndarray):
+    """Nearest of the centroids c (S, m, d) for the rows x (S, n, d) of S
+    spaces, by the index's x.c - |c|^2 / 2, in float64: (ids, sure), each
+    (S, n), sure where the best beats the runner-up by more than twice a
+    bound of the f32 rounding of a score, (d + 2) u (|x| |c| + |c|^2 / 2)
+    at the largest |c|."""
+    half = 0.5 * (c * c).sum(-1)                            # (S, m)
+    ct = np.swapaxes(c, 1, 2)
+    bound = (c.shape[-1] + 2) * F32_U * (
+        np.sqrt((x * x).sum(-1)) * np.sqrt(2 * half.max(1))[:, None]
+        + half.max(1)[:, None])                             # (S, n)
+    ids, gap = [], []
+    for s in range(0, x.shape[1], 1024):
+        score = x[:, s:s + 1024] @ ct - half[:, None, :]    # (S, n, m)
+        best = score.argmax(-1)
+        top = np.take_along_axis(score, best[..., None], -1)[..., 0]
+        np.put_along_axis(score, best[..., None], -np.inf, -1)
+        ids.append(best)
+        gap.append(top - score.max(-1))
+    return np.concatenate(ids, axis=1), np.concatenate(gap, axis=1) > 2 * bound
+
+
+def ivfpq_candidate_faults(q, dist, cand, exact, rows_of, centroids, codebooks,
+                           nprobe: int, eps: float = IVFPQ_EPS):
+    """An 'ivfpq' search held to a float64 recomputation from the raw rows
+    and the index's centroids and codebooks alone, here and in
+    chip_smoke.py: q (n, d) queries, dist and cand (n, k) the search's
+    squared distances and ids (-1 for none), exact (n,) each query's
+    exact top-1 row, rows_of(ids) the raw rows. Each row's cell (nearest
+    centroid) and PQ code (nearest codeword per subspace) are recomputed,
+    as are each query's nprobe probed cells (the best q.c - |c|^2 / 2) and
+    the squared distance from q to the row's decode rounded to bf16, as
+    the index's cache holds it. Where no assignment or probe could fall
+    the other way in f32, counts the faults:
+    - 'unprobed': a candidate in a cell that its query does not probe;
+    - 'distance': a candidate's distance off the recomputed one by more
+      than ``eps``;
+    - 'missed': the exact top-1 in a probed cell, nearer than every
+      candidate by more than ``eps``, and not among them.
+    Returns ({fault: count}, the number of queries whose exact top-1 was
+    held to the last rule)."""
+    q = np.asarray(q, np.float64)
+    c = np.asarray(centroids, np.float64)
+    cb = np.asarray(codebooks, np.float64)                  # (S, ksub, dsub)
+    n, k = cand.shape
+    n_sub, nlist = cb.shape[0], c.shape[0]
+    half = 0.5 * (c * c).sum(1)
+    probe = q @ c.T - half                                  # (n, nlist)
+    probe_bound = (c.shape[1] + 2) * F32_U * (np.abs(q) @ np.abs(c).T + half)
+    ranked = -np.sort(-probe, axis=1)
+    last_in = ranked[:, min(nprobe, nlist) - 1]
+    first_out = ranked[:, nprobe] if nprobe < nlist else np.full(n, -np.inf)
+    slack = 2 * probe_bound.max(1)
+
+    ids = np.concatenate([cand.reshape(-1), exact])
+    owner = np.concatenate([np.repeat(np.arange(n), k), np.arange(n)])
+    valid = ids >= 0
+    x = np.asarray(rows_of(np.maximum(ids, 0)), np.float64)
+    cell, cell_sure = (a[0] for a in _assigned(x[None], c[None]))
+    code, code_sure = _assigned(x.reshape(len(x), n_sub, -1).transpose(1, 0, 2), cb)
+    dec = cb[np.arange(n_sub)[:, None], code].transpose(1, 0, 2).reshape(len(x), -1)
+    dec = torch.from_numpy(dec.astype(np.float32)).bfloat16().double().numpy()
+    d64 = ((q[owner] - dec) ** 2).sum(1)
+    sure = valid & cell_sure & code_sure.all(0)
+    score = probe[owner, cell]
+    probed = score > first_out[owner] + slack[owner]
+    unprobed = score < last_in[owner] - slack[owner]
+
+    nc = n * k
+    c_sure, c_valid = sure[:nc].reshape(n, k), valid[:nc].reshape(n, k)
+    faults = {"unprobed": int((sure & unprobed)[:nc].sum()),
+              "distance": int((sure[:nc] & (np.abs(d64[:nc] - dist.reshape(-1)) > eps))
+                              .sum())}
+    far = np.where(c_valid, d64[:nc].reshape(n, k), -np.inf).max(1)
+    far = np.where(c_valid.all(1), far, np.inf)           # fewer than k: any row
+    held = (sure[nc:] & probed[nc:] & (c_sure | ~c_valid).all(1)
+            & (d64[nc:] < far - eps))
+    faults["missed"] = int((held & ~(cand == exact[:, None]).any(1)).sum())
+    return faults, int(held.sum())
+
+
 @pytest.fixture(scope="module")
 def one_torch_thread():
     """torch on one intra-op thread for a test module. The suite runs
