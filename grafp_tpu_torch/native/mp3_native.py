@@ -1,5 +1,5 @@
-"""mp3 decode through the system libmpg123, bound with ctypes (port of
-``grafp_tpu.native.mp3_native``'s decoder).
+"""mp3 decode through the system libmpg123 and encode through libmp3lame,
+both bound with ctypes (port of ``grafp_tpu.native.mp3_native``).
 
 The fma corpora the reference trains and evaluates on are mp3, decoded
 there by torchaudio's native backend (reference modules/data.py:45).
@@ -7,8 +7,10 @@ there by torchaudio's native backend (reference modules/data.py:45).
 and channel count (mpg123's f32 output path, no int16 stop). A host
 without libmpg123 raises :class:`NativeUnavailable`, on which
 ``data/audio_io.load_audio`` turns to the ``ffmpeg`` binary when one is
-on PATH. The encoder the JAX module also binds (libmp3lame) makes test
-fixtures only; the tests take it from the JAX package.
+on PATH. :func:`write` is the LAME CBR encoder that makes the mp3
+corpora of the tests and of ``scripts/torch_port_profile_input_pipeline.py``
+(the JAX module's, byte for byte); a host without libmp3lame raises
+:class:`NativeUnavailable`, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ class NativeUnavailable(RuntimeError):
 
 _lock = threading.Lock()
 _mpg123: Optional[ctypes.CDLL] = None
+_lame: Optional[ctypes.CDLL] = None
 
 # mpg123.h / fmt123.h constants (stable ABI since mpg123 1.x)
 _MPG123_OK = 0
@@ -36,6 +39,10 @@ _MPG123_NEW_FORMAT = -11
 _MPG123_ENC_FLOAT_32 = 0x200
 _MPG123_ADD_FLAGS = 2          # enum mpg123_parms
 _MPG123_FORCE_FLOAT = 0x400    # enum mpg123_param_flags
+
+# lame.h MPEG_mode
+_LAME_MODE_JOINT = 1
+_LAME_MODE_MONO = 3
 
 
 def _find(names) -> ctypes.CDLL:
@@ -78,9 +85,40 @@ def _load_mpg123() -> ctypes.CDLL:
         return lib
 
 
+def _load_lame() -> ctypes.CDLL:
+    global _lame
+    with _lock:
+        if _lame is not None:
+            return _lame
+        found = ctypes.util.find_library("mp3lame")
+        lib = _find(([found] if found else [])
+                    + ["libmp3lame.so.0", "libmp3lame.so"])
+        lib.lame_init.restype = ctypes.c_void_p
+        for fn in ("lame_set_in_samplerate", "lame_set_num_channels",
+                   "lame_set_brate", "lame_set_quality", "lame_set_mode"):
+            getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.lame_init_params.argtypes = [ctypes.c_void_p]
+        lib.lame_encode_buffer.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int]
+        lib.lame_encode_flush.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_int]
+        lib.lame_close.argtypes = [ctypes.c_void_p]
+        _lame = lib
+        return lib
+
+
 def decoder_available() -> bool:
     try:
         _load_mpg123()
+        return True
+    except NativeUnavailable:
+        return False
+
+
+def encoder_available() -> bool:
+    try:
+        _load_lame()
         return True
     except NativeUnavailable:
         return False
@@ -138,3 +176,56 @@ def read(path: str) -> Tuple[np.ndarray, int]:
     finally:
         lib.mpg123_close(h)
         lib.mpg123_delete(h)
+
+
+def write(path: str, x: np.ndarray, sr: int, kbps: int = 128) -> None:
+    """LAME CBR mp3 encode of float32 [-1, 1] PCM, mono (T,) or (T, 1|2):
+    quality 2, mono or joint stereo, each channel clipped and rounded to
+    int16 first. kbps=128 is fma's nominal rate.
+
+    An encoder for test and measurement corpora, not a gapless-safe
+    transcoder: no Xing/LAME info tag is written, so a decoder cannot
+    strip the ~1.7k-sample codec delay, and a decode of write()'s output
+    is offset from the input by the encoder's and the decoder's delays.
+    """
+    lib = _load_lame()
+    x = np.asarray(x, np.float32)
+    if x.ndim == 1:
+        n_ch, left = 1, x
+        right = left
+    elif x.ndim == 2 and x.shape[1] in (1, 2):
+        n_ch = x.shape[1]
+        left = np.ascontiguousarray(x[:, 0])
+        right = np.ascontiguousarray(x[:, -1])
+    else:
+        raise ValueError(f"expected (T,) or (T, 1|2) PCM, got {x.shape}")
+    pcm_l = np.clip(np.round(left * 32767.0), -32768, 32767).astype("<i2")
+    pcm_r = np.clip(np.round(right * 32767.0), -32768, 32767).astype("<i2")
+    gfp = lib.lame_init()
+    if not gfp:
+        raise NativeUnavailable("lame_init failed")
+    try:
+        lib.lame_set_in_samplerate(gfp, int(sr))
+        lib.lame_set_num_channels(gfp, n_ch)
+        lib.lame_set_brate(gfp, int(kbps))
+        lib.lame_set_quality(gfp, 2)
+        lib.lame_set_mode(
+            gfp, _LAME_MODE_MONO if n_ch == 1 else _LAME_MODE_JOINT)
+        if lib.lame_init_params(gfp) < 0:
+            raise IOError(f"lame_init_params rejected sr={sr} ch={n_ch} "
+                          f"kbps={kbps}")
+        n = len(pcm_l)
+        out_size = n * 5 // 4 + 7200  # lame.h's worst-case bound
+        out = ctypes.create_string_buffer(out_size)
+        nb = lib.lame_encode_buffer(
+            gfp, pcm_l.ctypes.data, pcm_r.ctypes.data, n, out, out_size)
+        if nb < 0:
+            raise IOError(f"lame_encode_buffer failed ({nb})")
+        with open(path, "wb") as f:
+            f.write(out.raw[:nb])
+            nb = lib.lame_encode_flush(gfp, out, out_size)
+            if nb < 0:
+                raise IOError(f"lame_encode_flush failed ({nb})")
+            f.write(out.raw[:nb])
+    finally:
+        lib.lame_close(gfp)

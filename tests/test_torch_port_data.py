@@ -94,15 +94,14 @@ def test_load_audio_refuses_a_file_that_is_not_audio(tmp_path):
 
 def test_mp3_decodes_as_jax(tmp_path):
     """mp3 through the libmpg123 binding, equal to the JAX package's
-    decode (the fixture is encoded with the JAX package's LAME binding)."""
-    from grafp_tpu.native import mp3_native as jmp3
-
-    if not (mp3_native.decoder_available() and jmp3.encoder_available()):
+    decode (the fixture is encoded with the port's LAME binding, which
+    writes the JAX package's bytes: tests/test_torch_port_rehearsals.py)."""
+    if not (mp3_native.decoder_available() and mp3_native.encoder_available()):
         pytest.skip("libmpg123/libmp3lame not present on this host")
     t = np.arange(2 * FS) / FS
     x = 0.3 * np.stack([np.sin(2 * np.pi * 440 * t), np.sin(2 * np.pi * 660 * t)], 1)
     path = str(tmp_path / "a.mp3")
-    jmp3.write(path, x.astype(np.float32), FS)
+    mp3_native.write(path, x.astype(np.float32), FS)
     want, wsr = jio.load_audio(path)
     got, sr = tio.load_audio(path)
     assert sr == wsr and got.tobytes() == want.tobytes()

@@ -1,8 +1,10 @@
 """The port stands alone: no module of grafp_tpu_torch, not chip_smoke.py
-and not the port's protocol drivers (scripts/torch_port_fma_large_smoke.py,
-scripts/torch_port_e2e_synthetic_icassp.py) imports jax, flax or the JAX
-package grafp_tpu (checked on the syntax tree, so prose that names them
-does not count)."""
+and not the port's drivers that run on the card's machine
+(scripts/torch_port_fma_large_smoke.py, torch_port_e2e_synthetic_icassp.py,
+torch_port_setup_synth_icassp.py, torch_port_e2e_int8_retrieval_signoff.py,
+torch_port_profile_input_pipeline.py, torch_port_cli_probe.py) imports jax, flax or the JAX package
+grafp_tpu (checked on the syntax tree, so prose that names them does not
+count), and none of those drivers imports the repo's tests/."""
 
 import ast
 import subprocess
@@ -14,8 +16,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "grafp_tpu")
 # the port's drivers that run on the card's machine, which has no JAX
-DRIVERS = [ROOT / "scripts" / "torch_port_fma_large_smoke.py",
-           ROOT / "scripts" / "torch_port_e2e_synthetic_icassp.py"]
+DRIVERS = [ROOT / "scripts" / f"torch_port_{name}.py" for name in (
+    "fma_large_smoke", "e2e_synthetic_icassp", "setup_synth_icassp",
+    "e2e_int8_retrieval_signoff", "profile_input_pipeline", "cli_probe")]
 SOURCES = (sorted((ROOT / "grafp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
            + DRIVERS)
 
@@ -36,6 +39,13 @@ def _forbidden(name: str) -> bool:
 def test_module_imports_nothing_of_jax(path):
     bad = [n for n in _imported(ast.parse(path.read_text())) if _forbidden(n)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", DRIVERS, ids=lambda p: p.name)
+def test_driver_imports_nothing_of_the_tests(path):
+    bad = [n for n in _imported(ast.parse(path.read_text()))
+           if n == "tests" or n.startswith("tests.") or n in ("fixtures", "torch_port_util")]
+    assert not bad, f"{path.name} imports {bad}"
 
 
 def test_scan_sees_a_forbidden_import():

@@ -226,6 +226,19 @@ def calibrated_jax_variables(model, shapes, spec, seed: int = 0):
     return jax_variables_from_port(model, shapes)
 
 
+def load_script(name: str):
+    """scripts/<name>.py of this checkout, loaded by its path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def hold_rows(what: str, got, ref, floor=None, mean_floor=None, device=None):
     """Rows of ``got`` against the same rows of ``ref`` (arrays or tensors,
     (rows, d)), here and in chip_smoke.py: each must lie nearer its own ref
