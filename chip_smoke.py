@@ -239,6 +239,24 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      JSON line. (The mp3 input run of
      scripts/torch_port_e2e_train_input_mp3.sh is not here: the card's host
      has neither libmpg123 nor libmp3lame.)
+ 18. the last JAX tools, alone (phases 16a's and 17a's writers have ended):
+     (a) scripts/torch_port_bf16_train_study.py at scripts/bf16_train_study.py's
+     defaults (size t, 64 pairs, 60 steps in f32 and 60 in bf16 from one
+     init, the script's banks and per-step generators): its five lines,
+     every loss and fingerprint finite, each run's last-10-step mean loss
+     below its first loss, ms a step and peak memory; 12 + 12 launches a
+     step, and the eval forward's fused blocks (12 in bf16; 10 in f32, whose
+     guard refuses stage 1, + 2 mrconv_concat); the f32 run again from the
+     same init on the same data, its gap to the first printed as the
+     yardstick of the bf16 gap (cuDNN's f32 weight gradients of the three
+     convolutions are not deterministic: ROADMAP.md C11); then the f32-trained model
+     served in f32, bf16 and int8_static on C10_CLIPS music-like clips, the
+     bf16 rows' cosines to the f32 rows and int8_static's to bf16, measured
+     with no floor; (b) scripts/torch_port_db_test.py on a dummy_db that
+     create_dummy_db writes from (a)'s f32 model, and
+     scripts/torch_port_model_test.py on (a)'s f32 model saved by the
+     port's checkpoint writer, each as a process on the card: exit 0 and
+     the line the JAX tool prints.
 
 The line before the last is the card (nvidia-smi), the one before it the
 kernels' JSON (launches by path: the DB build's under "db_build", the
@@ -246,8 +264,8 @@ entry points' under "cli", phase 10's under "baselines", phase 11's under
 "serve_int8" and "serve_int8_static", phase 12's under "ramp_*", "serve_*"
 and "train_*", phase 13's under "train_ddp", phase 14's under "k9_*" and
 "n3200_*", phase 16's under "e2e_train" and "e2e_build", phase 17's under
-"r5_train", "r5_test_fp", "signoff_bf16" and "signoff_int8_static"); the
-last line is
+"r5_train", "r5_test_fp", "signoff_bf16" and "signoff_int8_static", phase
+18's under "study_f32" and "study_bf16"); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2888,6 +2906,121 @@ def rehearsal_phase(data, root: str, zero_counts, counts, card: str) -> dict:
     out.update({f"signoff_{q}": so["launches"][q] for q in ("bf16", "int8_static")})
     return out
 
+# --- phase 18: the bf16-vs-f32 training study and the smoke tools ---------
+# 18a: scripts/bf16_train_study.py's defaults (steps, pairs, held-out rows)
+STUDY_STEPS, STUDY_PAIRS, STUDY_EVAL = 60, 64, 32
+C10_CLIPS = 128                # music-like clips served by 18a's f32-trained model
+SMOKE_TRACKS = 4               # 18b's dummy_db: tracks of 4-8 s
+
+
+def study_phase(zero_counts, counts, card: str, work: str) -> dict:
+    """Phase 18 (see the module docstring); returns its launches by path.
+    Every check raises."""
+    from grafp_tpu_torch.core import Config
+    from grafp_tpu_torch.fp import FingerprintPipeline
+    from grafp_tpu_torch.fp.builder import create_dummy_db
+    from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.ops.grapher_block import grapher_block_supported
+    from grafp_tpu_torch.train.checkpoint import save_ckp, train_payload
+
+    st = script("torch_port_bf16_train_study")
+    cfg = Config()
+    n_graphers = sum(BLOCKS)
+    banks, x_i, x_j, x_eval = st.study_data(STUDY_PAIRS, STUDY_EVAL, cfg.clip_frames)
+    init = st.initial_state_dict(cfg)
+    print(f"device={card} steps={STUDY_STEPS}", flush=True)
+    out, runs = {}, {}
+    for dtype, tag in (("float32", "f32 "), ("bfloat16", "bf16")):
+        path = f"study_{tag.strip()}"
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        state, losses, secs = st.train(dtype, STUDY_STEPS, banks, x_i, x_j, cfg, init, "cuda",
+                                       step_seconds=step_s)
+        z = st.fingerprints(state.model, cfg, x_eval)
+        out[path] = counts()
+        runs[dtype] = (state, losses, z)
+        print(st.run_line(tag, losses, secs), flush=True)
+        rest = np.array(step_s[1:]) * 1e3
+        print(f"18a {path}: {secs / STUDY_STEPS * 1e3:.1f} ms a step over {STUDY_STEPS} steps "
+              f"of {STUDY_PAIRS} pairs (host clock, synchronised each step); the first "
+              f"{step_s[0] * 1e3:.1f} ms, the rest median {np.median(rest):.1f} "
+              f"(min {rest.min():.1f}, max {rest.max():.1f}); peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]", flush=True)
+        check(bool(np.isfinite(losses).all()) and bool(np.isfinite(z).all()),
+              f"18a {path}: a loss or fingerprint is not finite")
+        check(losses[-10:].mean() < losses[0],
+              f"18a {path}: the last ten steps' mean loss {losses[-10:].mean():.4f} is not "
+              f"below the first {losses[0]:.4f}")
+        # the eval forward fuses every stage the guard admits (the f32 guard
+        # refuses stage 1); every train step runs each Grapher's kernels
+        tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        fused = sum(nb for (n, c), nb in zip(STAGES, BLOCKS)
+                    if grapher_block_supported(n, c, tdt, K))
+        expect(out[path], {"mrconv_concat": n_graphers * STUDY_STEPS + n_graphers - fused,
+                           "mrconv_concat_backward": n_graphers * STUDY_STEPS,
+                           "grapher_block": fused}, f"18a {path}")
+    (s32, l32, z32), (_, l16, z16) = runs["float32"], runs["bfloat16"]
+    for line in st.summary_lines(l32, z32, l16, z16):
+        print(line, flush=True)
+    # the yardstick of the gap: the f32 run again, from the same init on
+    # the same data, against the first
+    again, l32b, _ = st.train("float32", STUDY_STEPS, banks, x_i, x_j, cfg, init, "cuda")
+    z32b = st.fingerprints(again.model, cfg, x_eval)
+    rel = np.abs(l32b - l32) / np.maximum(np.abs(l32), 1e-6)
+    cos = st.row_cosines(z32b, z32)
+    print(f"18a f32 run again: losses bit-equal {bool(np.array_equal(l32b, l32))}, "
+          f"first unequal step {int(np.argmax(l32b != l32)) if (l32b != l32).any() else None}; "
+          f"loss |rel diff| mean {rel.mean():.4f} max {rel.max():.4f} final {rel[-1]:.4f}; "
+          f"trained-fingerprint cosine min {cos.min():.4f} mean {cos.mean():.4f}", flush=True)
+
+    # C10 on the card: the f32-trained model served in f32, bf16 and
+    # int8_static (maxima calibrated lazily on the first batch), rows of
+    # music-like clips, measured with no floor (a train-mode step is
+    # chaotic at near ties, PERF.md section 7)
+    trained = {k: v.detach().clone() for k, v in s32.model.state_dict().items()}
+    waves = clip_waves(C10_CLIPS, cfg["fs"], seed=18)
+    rows = {}
+    for name, fields in (("f32", {}), ("bf16", {"compute_dtype": "bfloat16"}),
+                         ("int8_static", {"compute_dtype": "bfloat16",
+                                          "serve_quant": "int8_static"})):
+        scfg = Config(**fields)
+        model = build_model(scfg)
+        model.load_state_dict(trained)
+        rows[name] = FingerprintPipeline(model, scfg).fingerprint_waves(waves).cpu().numpy()
+        check(bool(np.isfinite(rows[name]).all()), f"18a C10: {name} rows not finite")
+    for a, b in (("bf16", "f32"), ("int8_static", "bf16")):
+        own, other = row_cosines(rows[a], rows[b])
+        print(f"18a C10, the f32-trained model's {a} serving rows against its {b} rows "
+              f"({C10_CLIPS} music-like clips): cos min {own.min():.5f} mean "
+              f"{own.mean():.5f}; largest cosine between two different rows "
+              f"{other.max():.5f}; nearest their own row {int((own > other).sum())} of "
+              f"{C10_CLIPS}", flush=True)
+
+    # 18b: the reference-contract smoke tools as processes on the card
+    t0 = time.perf_counter()
+    db = os.path.join(work, "emb", "study")
+    pipe = FingerprintPipeline(s32.model, cfg)
+    n_rows, _ = create_dummy_db(music_like_tracks(SMOKE_TRACKS, 4.0, 8.0, cfg["fs"], seed=19),
+                                pipe, db, verbose=False)
+    ckp = save_ckp(train_payload(s32, 1, [float(l32.mean())], []), "study", work, "f32")
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name, argv, want in (
+            ("db_test", ["--emb_dir", os.path.join(work, "emb")],
+             f"{db}: dummy_db shape {(np.int64(n_rows), np.int64(cfg['d']))}"),
+            ("model_test", ["--ckp", ckp],
+             f"OK: checkpoint loads and runs; h=(1, {cfg['h']}) z=(1, {cfg['d']})")):
+        proc = subprocess.run([sys.executable, script_path(f"torch_port_{name}"), *argv],
+                              cwd=root, capture_output=True, text=True, timeout=300)
+        print(f"18b torch_port_{name}.py (rc {proc.returncode}): {proc.stdout.strip()}",
+              flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:], flush=True)
+        check(proc.returncode == 0 and proc.stdout.splitlines() == [want],
+              f"18b torch_port_{name}.py printed {proc.stdout!r}, expected {want!r}")
+    print(f"18b took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3472,6 +3605,15 @@ def phases(fma_data, fma_root: str, rh_data, rh_root: str) -> int:
         for name in wrappers:
             launches[name][path] = got[name]
     print(f"phase 17 took {time.perf_counter() - t17:.1f} s")
+    # 18. the bf16-vs-f32 training study at its defaults, C10's serving rows,
+    # then the reference-contract smoke tools
+    print(f"phase 18 at {time.perf_counter() - t_all:.1f} s", flush=True)
+    t18 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        for path, got in study_phase(zero_counts, counts, card, work).items():
+            for name in wrappers:
+                launches[name][path] = got[name]
+    print(f"phase 18 took {time.perf_counter() - t18:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     sources = {"mrconv_concat": ("mrconv_concat.cu", "grafp_tpu/ops/pallas_knn.py:376"),

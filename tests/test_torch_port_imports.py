@@ -2,7 +2,9 @@
 and not the port's drivers that run on the card's machine
 (scripts/torch_port_fma_large_smoke.py, torch_port_e2e_synthetic_icassp.py,
 torch_port_setup_synth_icassp.py, torch_port_e2e_int8_retrieval_signoff.py,
-torch_port_profile_input_pipeline.py, torch_port_cli_probe.py) imports jax, flax or the JAX package
+torch_port_profile_input_pipeline.py, torch_port_cli_probe.py,
+torch_port_bf16_train_study.py, torch_port_db_test.py,
+torch_port_model_test.py, torch_port_determinism.py) imports jax, flax or the JAX package
 grafp_tpu (checked on the syntax tree, so prose that names them does not
 count), and none of those drivers imports the repo's tests/."""
 
@@ -18,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "grafp_tpu")
 # the port's drivers that run on the card's machine, which has no JAX
 DRIVERS = [ROOT / "scripts" / f"torch_port_{name}.py" for name in (
     "fma_large_smoke", "e2e_synthetic_icassp", "setup_synth_icassp",
-    "e2e_int8_retrieval_signoff", "profile_input_pipeline", "cli_probe")]
+    "e2e_int8_retrieval_signoff", "profile_input_pipeline", "cli_probe",
+    "bf16_train_study", "db_test", "model_test", "determinism")]
 SOURCES = (sorted((ROOT / "grafp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
            + DRIVERS)
 
