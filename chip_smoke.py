@@ -247,9 +247,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      below its first loss, ms a step and peak memory; 12 + 12 launches a
      step, and the eval forward's fused blocks (12 in bf16; 10 in f32, whose
      guard refuses stage 1, + 2 mrconv_concat); the f32 run again from the
-     same init on the same data, its gap to the first printed as the
-     yardstick of the bf16 gap (cuDNN's f32 weight gradients of the three
-     convolutions are not deterministic: ROADMAP.md C11); then the f32-trained model
+     same init on the same data, whose losses and trained fingerprints
+     must equal the first run's bit for bit (ROADMAP.md C11, repaired);
+     then the f32-trained model
      served in f32, bf16 and int8_static on C10_CLIPS music-like clips, the
      bf16 rows' cosines to the f32 rows and int8_static's to bf16, measured
      with no floor; (b) scripts/torch_port_db_test.py on a dummy_db that
@@ -257,6 +257,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      scripts/torch_port_model_test.py on (a)'s f32 model saved by the
      port's checkpoint writer, each as a process on the card: exit 0 and
      the line the JAX tool prints.
+ 19. one answer for one input: scripts/torch_port_determinism.py's paths,
+     each run twice from one state on one input: the train steps in f32
+     and bf16 (size t, 'ramp' and k = 9 at 256 pairs; the pair-layout
+     MRConv, EdgeConv, SAGE and GIN at 64; AST at 512, NAFP at 256), every
+     parameter, BatchNorm statistic and Adam moment, the loss and the grad
+     norm; 'ivf', 'ivfpq' and 'ivfpq-rr' trained and filled on 2^20 seeded
+     unit rows and searched for the top 20 of 1,000 queries (centroids,
+     codebooks, codes, cells, ids); the train CLI in f32, two epochs of one
+     step from wav files (its checkpoint files and their tensors). One line
+     a path with its count of differing tensors and its seconds; a tensor
+     or a checkpoint file that differs raises.
 
 The line before the last is the card (nvidia-smi), the one before it the
 kernels' JSON (launches by path: the DB build's under "db_build", the
@@ -265,7 +276,8 @@ entry points' under "cli", phase 10's under "baselines", phase 11's under
 and "train_*", phase 13's under "train_ddp", phase 14's under "k9_*" and
 "n3200_*", phase 16's under "e2e_train" and "e2e_build", phase 17's under
 "r5_train", "r5_test_fp", "signoff_bf16" and "signoff_int8_static", phase
-18's under "study_f32" and "study_bf16"); the last line is
+18's under "study_f32" and "study_bf16", phase 19's under "determinism");
+the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2963,16 +2975,20 @@ def study_phase(zero_counts, counts, card: str, work: str) -> dict:
     (s32, l32, z32), (_, l16, z16) = runs["float32"], runs["bfloat16"]
     for line in st.summary_lines(l32, z32, l16, z16):
         print(line, flush=True)
-    # the yardstick of the gap: the f32 run again, from the same init on
-    # the same data, against the first
+    # the f32 run again, from the same init on the same data: one answer
+    # for one input, so the same losses and trained fingerprints bit for bit
+    # (ROADMAP.md C11: cuDNN's default f32 weight gradients parted them)
     again, l32b, _ = st.train("float32", STUDY_STEPS, banks, x_i, x_j, cfg, init, "cuda")
     z32b = st.fingerprints(again.model, cfg, x_eval)
     rel = np.abs(l32b - l32) / np.maximum(np.abs(l32), 1e-6)
     cos = st.row_cosines(z32b, z32)
-    print(f"18a f32 run again: losses bit-equal {bool(np.array_equal(l32b, l32))}, "
+    same = bool(np.array_equal(l32b, l32)) and bool(np.array_equal(z32b, z32))
+    print(f"18a f32 run again: losses and trained fingerprints bit-equal {same}, "
           f"first unequal step {int(np.argmax(l32b != l32)) if (l32b != l32).any() else None}; "
           f"loss |rel diff| mean {rel.mean():.4f} max {rel.max():.4f} final {rel[-1]:.4f}; "
           f"trained-fingerprint cosine min {cos.min():.4f} mean {cos.mean():.4f}", flush=True)
+    check(same, "18a: the f32 run again from the same init on the same data gave other "
+                "losses or fingerprints")
 
     # C10 on the card: the f32-trained model served in f32, bf16 and
     # int8_static (maxima calibrated lazily on the first batch), rows of
@@ -3020,6 +3036,21 @@ def study_phase(zero_counts, counts, card: str, work: str) -> dict:
               f"18b torch_port_{name}.py printed {proc.stdout!r}, expected {want!r}")
     print(f"18b took {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+# --- phase 19: one answer for one input ------------------------------------
+def determinism_phase(zero_counts, counts, card: str) -> dict:
+    """Phase 19 (see the module docstring): every path of
+    scripts/torch_port_determinism.py twice; raises where a tensor or the
+    train CLI's checkpoint file differs. Returns its launches."""
+    det = script("torch_port_determinism")
+    zero_counts()
+    results = det.run(det.PATHS, "cuda", rows=EVAL_ROWS, queries=1000,
+                      report=lambda s: print(f"19 {s} [{card}]", flush=True))
+    got = counts()
+    bad = [label for label, r in results.items() if det.differs(r)]
+    check(not bad, f"19: two runs of {bad} differ")
+    return got
 
 
 def main() -> int:
@@ -3614,6 +3645,13 @@ def phases(fma_data, fma_root: str, rh_data, rh_root: str) -> int:
             for name in wrappers:
                 launches[name][path] = got[name]
     print(f"phase 18 took {time.perf_counter() - t18:.1f} s")
+    # 19. one answer for one input: every training path, the index trainers
+    # and the train CLI, each twice
+    print(f"phase 19 at {time.perf_counter() - t_all:.1f} s", flush=True)
+    t19 = time.perf_counter()
+    for name, n in determinism_phase(zero_counts, counts, card).items():
+        launches[name]["determinism"] = n
+    print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
 
     sources = {"mrconv_concat": ("mrconv_concat.cu", "grafp_tpu/ops/pallas_knn.py:376"),

@@ -8,13 +8,23 @@ LN + ReLU, with channels 128, 128, 256, 256, 512, 512, 1024, 1024 ->
 (B, 1024): the spatial dims reach 1 x 1 at stage 7. NCHW throughout; the
 LayerNorm's parameters are (C, H, W), as the reference's.
 
+A forward that records gradients (the train step) runs each conv as one
+product (``strided_conv``): its three taps along the strided axis side by
+side, times the weight. Its gradients are products and slices, which the
+card forms in one order on every run; cuDNN's weight gradients of these
+convs, in f32 and in bf16, did not (ROADMAP.md C13), and its
+deterministic algorithms took a bf16 train step from 81 to 486 ms on an
+H100 (PERF.md). A forward without gradients (serving, the DB build,
+validation) takes no weight gradient and keeps cuDNN's convs
+(``layers.conv2d``), which serve faster than the products on the card.
+
 Dtype rule, flax's: each conv casts its input and weight to the compute
-dtype and returns it. The LayerNorm of a bf16 map rounds where the JAX
-package's jitted forward does on the CPU: the mean and the variance
-accumulate in f32 and are rounded to bf16, the centred map and sqrt(var +
-eps) are rounded to bf16, their quotient stays f32 (XLA drops that
-rounding), and the f32 affine is one fused multiply-add, so ReLU runs in
-f32 and the next conv casts back.
+dtype, returns the product in it, then adds the bias in it. The LayerNorm
+of a bf16 map rounds where the JAX package's jitted forward does on the
+CPU: the mean and the variance accumulate in f32 and are rounded to bf16,
+the centred map and sqrt(var + eps) are rounded to bf16, their quotient
+stays f32 (XLA drops that rounding), and the f32 affine is one fused
+multiply-add, so ReLU runs in f32 and the next conv casts back.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from grafp_tpu_torch.models.layers import conv2d, torch_default_init
+from grafp_tpu_torch.models.layers import cast, conv2d, torch_default_init
 
 CHANNELS = (128, 128, 256, 256, 512, 512, 1024, 1024)  # chang_fp
 LN_EPS = 1e-5
@@ -52,6 +62,26 @@ class FullShapeLayerNorm(nn.Module):
             den = torch.sqrt(var.to(x.dtype) + eps)
             y = (x - mu.to(x.dtype)).float() / den.float()
         return torch.addcmul(self.bias, y, self.weight)
+
+
+def strided_conv(x: torch.Tensor, conv: nn.Conv2d, dtype: Optional[torch.dtype]
+                 ) -> torch.Tensor:
+    """``conv`` (kernel 3, stride 2 and padding 1 along one axis of the
+    (B, C, H, W) map, 1 along the other) as one product: output position
+    j's taps 2j - 1, 2j, 2j + 1 along that axis (zero outside), (B, C, 3,
+    H', W'), contracted with the weight as (C', C, 3); then the bias."""
+    axis = 2 if conv.kernel_size[0] == 3 else 3
+    x = cast(x, dtype)
+    n_out = (x.shape[axis] - 1) // 2 + 1
+    xp = F.pad(x, (0, 0, 1, 1) if axis == 2 else (1, 1))
+    at = [slice(None)] * 4
+    taps = []
+    for t in range(3):
+        at[axis] = slice(t, t + 2 * n_out - 1, 2)
+        taps.append(xp[tuple(at)])
+    w = cast(conv.weight, dtype).reshape(conv.out_channels, -1, 3)
+    y = torch.einsum("bcthw,oct->bohw", torch.stack(taps, dim=2), w)
+    return y + cast(conv.bias, dtype)[:, None, None]
 
 
 def _out(n: int, k: int) -> int:
@@ -88,9 +118,10 @@ class NAFPEncoder(nn.Module):
                 torch_default_init(conv.weight, conv.bias, conv.weight[0].numel(), g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = strided_conv if torch.is_grad_enabled() else conv2d
         y = x[:, None]
         for i in range(len(CHANNELS)):
             for half in "ab":
-                y = conv2d(y, getattr(self, f"conv{i}{half}"), self.dtype)
+                y = conv(y, getattr(self, f"conv{i}{half}"), self.dtype)
                 y = F.relu(getattr(self, f"ln{i}{half}")(y), inplace=True)
         return y.reshape(y.shape[0], -1)

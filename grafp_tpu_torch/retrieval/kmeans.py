@@ -1,16 +1,22 @@
 """Lloyd k-means on the card (port of ``grafp_tpu.retrieval.kmeans``).
 
 The IVF coarse quantizer and the PQ codebooks train with it. Assignment is
-a distance product and an argmax; the update sums each cluster's rows
-(``index_add_``) and divides by its count; an empty cluster is re-seeded
-from a random data row.
+a distance product and an argmax; the update sums each cluster's rows by
+a one-hot product, as the JAX package does, and divides by its count; an
+empty cluster is re-seeded from a random data row. The sums take no float
+atomics: on the card a scatter-add (``index_add_``) adds each cluster's
+rows in a different order on every run, and so trains other centroids
+from the same data (ROADMAP.md C12); a product and the chunks' sums in a
+fixed order give one answer for one input.
 
 Every random draw is explicit: the initial centroid rows and the re-seed
 rows of each iteration come either from a ``torch.Generator`` or from the
 caller (the tests pass the JAX function's draws). Rows are assigned in
 chunks, so the (rows, k) score matrix never exceeds ``ASSIGN_ROWS`` rows;
 the multi-subspace form of the PQ trainer would otherwise hold (S, M,
-ksub) scores, 64 GiB for 64 subspaces of 2^20 rows.
+ksub) scores, 64 GiB for 64 subspaces of 2^20 rows. The update's one-hot
+matrix of a chunk is written over that chunk's scores, so it takes no
+memory of its own.
 """
 
 from __future__ import annotations
@@ -24,16 +30,42 @@ import torch
 ASSIGN_ROWS = 1 << 14
 
 
+def _scores(chunk: torch.Tensor, centroids: torch.Tensor,
+            half_sq: torch.Tensor) -> torch.Tensor:
+    """(..., rows, k) x.c - ||c||^2 / 2: the larger, the nearer."""
+    return torch.matmul(chunk, centroids.transpose(-1, -2)).sub_(half_sq[..., None, :])
+
+
 def assign(data: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """(..., M, d), (..., k, d) -> (..., M) int64 nearest-centroid ids:
     argmax of x.c - ||c||^2 / 2, the lower id among equal scores."""
     half_sq = 0.5 * torch.sum(centroids * centroids, dim=-1)
-    out = []
-    for s in range(0, data.shape[-2], ASSIGN_ROWS):
-        chunk = data[..., s:s + ASSIGN_ROWS, :]
-        score = torch.matmul(chunk, centroids.transpose(-1, -2))
-        out.append(torch.argmax(score.sub_(half_sq[..., None, :]), dim=-1))
-    return torch.cat(out, dim=-1)
+    return torch.cat([torch.argmax(_scores(data[..., s:s + ASSIGN_ROWS, :], centroids,
+                                           half_sq), dim=-1)
+                      for s in range(0, data.shape[-2], ASSIGN_ROWS)], dim=-1)
+
+
+def cluster_sums(data: torch.Tensor, centroids: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sums (n, k, d), counts (n, k)) of the rows of data (n, M, d)
+    nearest each of centroids (n, k, d), as ``assign`` assigns them. Each
+    chunk of ``ASSIGN_ROWS`` rows adds its one-hot product onehot^T x to
+    the sums, chunk after chunk, so the order of every addition is fixed
+    (``grafp_tpu/retrieval/kmeans.py:41-42`` forms the same product over
+    all rows at once). The counts are whole numbers, added in int64."""
+    n, m, d = data.shape
+    k = centroids.shape[1]
+    half_sq = 0.5 * torch.sum(centroids * centroids, dim=-1)
+    sums = torch.zeros(n, k, d, device=data.device)
+    counts = torch.zeros(n, k, dtype=torch.int64, device=data.device)
+    for s in range(0, m, ASSIGN_ROWS):
+        chunk = data[:, s:s + ASSIGN_ROWS]
+        score = _scores(chunk, centroids, half_sq)
+        ids = torch.argmax(score, dim=-1)                     # (n, rows)
+        onehot = score.zero_().scatter_(-1, ids[..., None], 1.0)
+        sums.baddbmm_(onehot.transpose(1, 2), chunk)
+        counts.scatter_add_(1, ids, torch.ones_like(ids))
+    return sums, counts.to(torch.float32)
 
 
 def draw_kmeans_rows(m: int, k: int, iters: int, generator: torch.Generator,
@@ -72,14 +104,9 @@ def kmeans(data: torch.Tensor, k: int, iters: int = 20,
     reseed = reseed.reshape(n, iters, k).to(data.device)
     batch = torch.arange(n, device=data.device)[:, None]
     cent = flat[batch, init]                                  # (n, k, d)
-    ones = torch.ones(m, device=data.device)
     for it in range(iters):
-        a = assign(flat, cent) + batch * k                    # (n, M) flat ids
-        sums = torch.zeros(n * k, d, device=data.device).index_add_(
-            0, a.reshape(-1), flat.reshape(-1, d))
-        counts = torch.zeros(n * k, device=data.device).index_add_(
-            0, a.reshape(-1), ones.repeat(n))
-        new = (sums / torch.clamp(counts, min=1.0)[:, None]).reshape(n, k, d)
+        sums, counts = cluster_sums(flat, cent)
+        new = sums / torch.clamp(counts, min=1.0)[..., None]
         rand_pts = flat[batch, reseed[:, it]]
-        cent = torch.where((counts > 0).reshape(n, k, 1), new, rand_pts)
+        cent = torch.where((counts > 0)[..., None], new, rand_pts)
     return cent.reshape(*lead, k, d), assign(flat, cent).reshape(*lead, m)

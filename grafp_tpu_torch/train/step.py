@@ -22,11 +22,21 @@ and NT-Xent negatives are global (``models/layers.BatchNorm``,
 ``train/loss.global_views``); the gradients are averaged over the ranks.
 The loss and grad norm are the global batch's, bit-equal on every rank,
 and so are the parameters after the update.
+
+One answer for one input, as the JAX package's jitted step gives: the
+forward and the backward run under ``deterministic_convolutions``. cuDNN
+otherwise picks, for the weight gradients of the PeakEmbed and Downsample
+convolutions in f32, of AST's patch conv in f32 and of NAFP's convs in
+f32 and bf16, algorithms that add in another order on every run
+(ROADMAP.md C11, C13); it chooses during the backward, so the scope
+encloses ``loss.backward()``. It is scoped to the step: serving keeps
+the algorithms it captured.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+import contextlib
+from typing import Callable, Dict, Iterator, Optional, Union
 
 import torch
 
@@ -46,6 +56,20 @@ from grafp_tpu_torch.train.state import TrainState
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32."""
     return torch.sqrt(sum(torch.sum(t.to(torch.float32) ** 2) for t in tensors))
+
+
+@contextlib.contextmanager
+def deterministic_convolutions() -> Iterator[None]:
+    """Inside the block cuDNN runs only its deterministic convolution
+    algorithms (its other settings untouched); the flag is restored on
+    exit. The step has no path around them."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = before
 
 
 def make_train_step(model: torch.nn.Module, cfg,
@@ -91,11 +115,12 @@ def make_train_step(model: torch.nn.Module, cfg,
         if parallel:
             own = torch.arange(mine.start, mine.stop, device=generator.device)
             rows = (2 * n * b, torch.cat([own, n * b + own]))
-        with drop_path_generator(model, generator, rows):
-            _, z = model.train()(spec)
-        loss = ntxent_loss(*global_views(z[:b], z[b:]), tau)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with deterministic_convolutions():
+            with drop_path_generator(model, generator, rows):
+                _, z = model.train()(spec)
+            loss = ntxent_loss(*global_views(z[:b], z[b:]), tau)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         if parallel:
             distributed.average_gradients(model.parameters())
         grads = [p.grad for p in model.parameters() if p.grad is not None]

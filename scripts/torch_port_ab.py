@@ -15,8 +15,14 @@ side gets the same seeded inputs at the size-t stage shapes:
 ``mrconv_concat_backward`` at B = 128 (f32) and B = 512 (bf16),
 ``max_neighbors`` and ``max_neighbors_backward`` at B = 128 (f32) and
 B = 512 (bf16), ``grapher_block`` at B = 128 (f32 and bf16, the stage
-shapes its guard admits, seeded random folded weights), and the bf16 wave
--> fingerprint forward at B = 128. The first run of each side saves its kernel outputs;
+shapes its guard admits, seeded random folded weights), the bf16 wave
+-> fingerprint forward at B = 128 of size t and of NAFP
+(``Config(arch='nafp', n_mels=256)``), the size-t and the NAFP train
+steps at 2B = 512 in f32 and in bf16 (``make_train_step`` on seeded
+waves and augment banks, seeded weights), and the training of 'ivf' (k-means, k = 400) and 'ivfpq'
+(k-means, k = 64, and the 64 PQ codebooks) on TRAIN_ROWS seeded unit rows
+(``get_index``: seconds, the card's peak memory, and a hash of the
+centroids and codebooks). The first run of each side saves its kernel outputs;
 the script then checks that
 
   * f32 outputs are bit-identical across the two trees (hash-equal),
@@ -29,8 +35,11 @@ the script then checks that
     x1's scores (the rows that differ between the trees are counted),
 
 and prints per-stage times of every run (for #5 also the time of its
-product kernels, from the profiler) with the card's name and power limit.
-It exits 1 when a check fails.
+product kernels, from the profiler), the train steps' and the index
+trainings' times, and whether each tree trained the same centroids and
+codebooks in its two runs, with the card's name and power limit. It exits
+1 when a check fails (the index hashes are printed, not checked: a tree
+whose k-means is not deterministic is what they show).
 """
 
 from __future__ import annotations
@@ -45,6 +54,10 @@ import tempfile
 
 STAGES = ((1024, 64), (512, 128), (256, 256), (128, 512))
 B, BT, K = 128, 512, 3
+TRAIN_PAIRS = 256                          # the train step's bsz_train: 2B = 512
+TRAIN_ROWS = 1 << 20                       # rows the indexes train on
+ARCHS = ("grafp", "nafp")                  # size t and NAFP
+ARCH_DTYPES = tuple((a, d) for a in ARCHS for d in ("float32", "bfloat16"))
 # (op, dtype, batch): what each side runs at every stage shape
 CASES = (("forward", "bfloat16", B), ("forward", "float32", B),
          ("forward", "bfloat16", BT), ("backward", "float32", B),
@@ -128,12 +141,82 @@ def products_ms(run, iters: int = 5) -> float:
                if "grapher_gemm" in e.key) / 1e3 / iters
 
 
+def arch_config(arch: str, dtype: str):
+    """Size t ('grafp') or NAFP (the repo has no NAFP config) in ``dtype``."""
+    from grafp_tpu_torch.core import Config
+
+    if arch == "nafp":
+        return Config(arch="nafp", n_mels=256, compute_dtype=dtype)
+    return Config(compute_dtype=dtype)
+
+
+def train_step_ms(reps: int = 5) -> dict:
+    """{"ARCH DTYPE": ms} of one train step at TRAIN_PAIRS pairs, size t
+    ('grafp') and NAFP, f32 and bf16."""
+    import numpy as np
+    import torch
+
+    from grafp_tpu_torch.dsp.augment import AugmentBanks
+    from grafp_tpu_torch.models import build_model
+    from grafp_tpu_torch.train import create_train_state, make_train_step
+
+    rs = np.random.RandomState(0)
+    banks = AugmentBanks.from_arrays(
+        noise_clips=[rs.randn(64000).astype(np.float32) for _ in range(8)],
+        ir_clips=[np.r_[1.0, rs.randn(8000) * 0.05].astype(np.float32) for _ in range(4)],
+        noise_len=64000, ir_len=8192)
+    out = {}
+    for arch, dtype in ARCH_DTYPES:
+        cfg = arch_config(arch, dtype)
+        model = build_model(cfg, generator=torch.Generator().manual_seed(0), train=True)
+        state = create_train_state(model, cfg, steps_per_epoch=100)
+        step = make_train_step(model, cfg, banks)
+        x_i, x_j = (torch.as_tensor(rs.randn(TRAIN_PAIRS, cfg.clip_frames).astype(np.float32),
+                                    device="cuda") for _ in range(2))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        out[f"{arch} {dtype}"] = _time_ms(lambda: step(state, x_i, x_j, gen), reps)
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def index_training() -> dict:
+    """{index type: (train seconds, card peak GB, hash of the centroids and
+    codebooks)} of 'ivf' and 'ivfpq' trained on TRAIN_ROWS seeded unit
+    rows."""
+    import contextlib
+    import io
+    import time
+
+    import numpy as np
+    import torch
+
+    from grafp_tpu_torch.retrieval.index import get_index
+
+    x = np.random.RandomState(3).standard_normal((TRAIN_ROWS, 128)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    out = {}
+    for kind in ("ivf", "ivfpq"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            index = get_index(kind, x, x.shape)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        trained = [index.centroids] + ([index.pq.codebooks] if kind == "ivfpq" else [])
+        digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in trained))
+        out[kind] = (secs, torch.cuda.max_memory_allocated() / 1e9, digest.hexdigest())
+        del index
+        torch.cuda.empty_cache()
+    return out
+
+
 def worker(root: str, save: str | None) -> dict:
     """One side: import the package under ``root`` and measure."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
-    from grafp_tpu_torch.core import Config
     from grafp_tpu_torch.fp import FingerprintPipeline
     from grafp_tpu_torch.models import build_model
     from grafp_tpu_torch.ops.grapher_block import grapher_block
@@ -163,12 +246,18 @@ def worker(root: str, save: str | None) -> dict:
         out["ms"][key] = _time_ms(run, 20 if b == B else 5)
         del x, gy, y
         torch.cuda.empty_cache()
-    cfg = Config(compute_dtype="bfloat16")
-    pipe = FingerprintPipeline(
-        build_model(cfg, generator=torch.Generator().manual_seed(0)), cfg)
-    waves = torch.randn(B, cfg.clip_frames, device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(1))
-    out["forward_ms"] = _time_ms(lambda: pipe.fingerprint_waves(waves), 10)
+    out["forward_ms"] = {}
+    for arch in ARCHS:
+        cfg = arch_config(arch, "bfloat16")
+        pipe = FingerprintPipeline(
+            build_model(cfg, generator=torch.Generator().manual_seed(0)), cfg)
+        waves = torch.randn(B, cfg.clip_frames, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(1))
+        out["forward_ms"][arch] = _time_ms(lambda: pipe.fingerprint_waves(waves), 10)
+        del pipe
+        torch.cuda.empty_cache()
+    out["step_ms"] = train_step_ms()
+    out["index"] = index_training()
     return out
 
 
@@ -265,9 +354,21 @@ def main() -> int:
         if key in runs[0][1].get("products_ms", {}):
             cols = ", ".join(f"{n} {r['products_ms'][key]:.4f}" for n, r in runs)
             print(f"time {key} products (grapher_gemm* kernels): {cols} ms [{card}]")
-    cols = ", ".join(f"{n} {r['forward_ms']:.3f} ({B / r['forward_ms'] * 1e3:.1f} fp/s)"
-                     for n, r in runs)
-    print(f"serving forward bf16 B={B}: {cols} ms [{card}]")
+    for arch in ARCHS:
+        cols = ", ".join(f"{n} {r['forward_ms'][arch]:.3f} "
+                         f"({B / r['forward_ms'][arch] * 1e3:.1f} fp/s)" for n, r in runs)
+        print(f"serving forward {arch} bf16 B={B}: {cols} ms [{card}]")
+    for arch, dtype in ARCH_DTYPES:
+        cols = ", ".join(f"{n} {r['step_ms'][f'{arch} {dtype}']:.3f}" for n, r in runs)
+        print(f"train step {arch} {dtype}, {TRAIN_PAIRS} pairs (2B={2 * TRAIN_PAIRS}): "
+              f"{cols} ms [{card}]")
+    for kind in ("ivf", "ivfpq"):
+        cols = ", ".join(f"{n} {r['index'][kind][0]:.3f} s (peak {r['index'][kind][1]:.2f} GB)"
+                         for n, r in runs)
+        same = {name: len({r["index"][kind][2] for n, r in runs if n == name}) == 1
+                for name in ("other", "this")}
+        print(f"index {kind} train on {TRAIN_ROWS} rows: {cols}; centroids and codebooks "
+              f"equal between the tree's two runs: {same} [{card}]")
     return 0 if ok and repeat else 1
 
 

@@ -231,22 +231,28 @@ def test_study_defaults_to_the_card():
 
 
 def test_determinism_probe_reports_each_run(monkeypatch):
-    """scripts/torch_port_determinism.py (C11's reproduction) at the tiny
-    geometry on 2 pairs: on the CPU every step is deterministic, so each of
-    its three lines reports equal losses and no differing tensor."""
+    """scripts/torch_port_determinism.py (the reproduction of C11 and its
+    kind) at the tiny geometry on 2 pairs, its step paths that take k = 3
+    at 8 nodes, then again under deterministic algorithms: on the CPU every
+    step is deterministic, so each line reports equal losses and no
+    differing tensor, and no op warns."""
     det = load_script("torch_port_determinism")
-    import torch_port_bf16_train_study as st    # the module the probe imports
-
-    monkeypatch.setattr(st, "study_data", functools.partial(st.study_data, 2, 4))
     monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    paths = ["size t", "pair", "edge", "sage", "gin"]
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        assert det.main(["--device", "cpu"], cfg=Config(**TINY)) == 0
+        assert det.main(["--device", "cpu", "--paths", ",".join(paths), "--pairs", "2",
+                         "--deterministic-algorithms"], cfg=Config(**TINY)) == 0
     lines = out.getvalue().splitlines()
-    assert lines[0] == "device=cpu" and len(lines) == 4, lines
-    for line in lines[1:]:
-        loss = re.search(r"losses (\S+) (\S+);", line)
-        assert loss and loss.group(1) == loss.group(2), line
-        assert re.search(r"; 0 (of \d+ )?tensors differ \[\]", line), line
-    assert lines[3].endswith("warnings []"), lines[3]
-
+    labels = [f"{p} {dt} step (2 pairs)" for p in paths for dt in ("float32", "bfloat16")]
+    assert lines[0] == "device=cpu" and len(lines) == 2 * len(labels) + 3, lines
+    steps = lines[1:1 + len(labels)]
+    again = lines[1 + len(labels):1 + 2 * len(labels)]
+    for label, line, line2 in zip(labels, steps, again):
+        for text, prefix in ((line, ""), (line2, "deterministic algorithms, ")):
+            assert text.startswith(f"{prefix}{label}: losses "), text
+            loss = re.search(r"losses (\S+) (\S+);", text)
+            assert loss and loss.group(1) == loss.group(2), text
+            assert re.search(r"; 0 of \d+ tensors differ \[\]; ", text), text
+    assert lines[-2] == "deterministic algorithms, warnings []", lines[-2]
+    assert lines[-1] == f"paths with a differing tensor: 0 of {len(labels)} []", lines[-1]
